@@ -1,0 +1,109 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+The sources are compiled at first use by ``nvcc`` into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library's name carries
+a hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is reused.  Output goes to ``dpmmsubclusters_tpu_torch/_build/``
+(listed in ``.gitignore``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # feat, valid, phi, log_w, seed, tile_off, hard, tile, n, f, k,
+    # labels, sub, partial, stats, stream
+    "dpmm_fused_assign": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P],
+    # feat, labels, sub, valid, n, f, k, partial, stats, stream
+    "dpmm_stats_from_labels": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "dpmm_stats_chunk": [],
+    "dpmm_error_string": [_I],
+}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (searched PATH and CUDA_HOME): the CUDA kernels of "
+        "dpmmsubclusters_tpu_torch are built from csrc/ at first use"
+    )
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Compile ``csrc/*.cu`` into ``_build/`` if needed; returns the path of
+    the shared library.  Raises ``RuntimeError`` with the compiler's output
+    when nvcc fails."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    lib = BUILD_DIR / f"libdpmm_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    # build under a temporary name, then rename: a concurrent or interrupted
+    # build never leaves a partial library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        if verbose:
+            print(proc.stdout + proc.stderr, flush=True)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.dpmm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error code (a refused
+    launch never runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        err = load().dpmm_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({err})")

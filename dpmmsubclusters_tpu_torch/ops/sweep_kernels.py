@@ -1,0 +1,224 @@
+"""The sweep's two kernels: wrappers around the hand-written CUDA kernels of
+``csrc/`` and, beside each, its plain PyTorch version.
+
+* :func:`fused_assign` (kernel A, ``csrc/fused_assign.cu``) -- labels,
+  sub-labels and ``[LEFT K | RIGHT K] x F`` statistics for one sweep.
+  Replaces ``dpmmsubclusters_tpu.ops.pallas_sweep.fused_assign``.
+* :func:`stats_from_labels` (kernel B, ``csrc/stats_from_labels.cu``) --
+  the same statistics from given labels.  Replaces
+  ``dpmmsubclusters_tpu.ops.pallas_sweep.stats_from_labels``.
+
+Both take the f32 feature cache ``[N, F]`` (rows ``[1, x, triu(x x^T)]``)
+and flat ``int32 [N]`` label streams.  The tensor's device picks the path:
+a CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
+version.  Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+The Gumbel noise is the TPU kernel's counter hash, reproduced bit for bit
+(:func:`gumbel_noise`), so fed the same integer seed, ``tile_off`` and hash
+tile size ``tile``, every implementation draws the same noise.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+_MASK32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+_SUB_SALT = 0xA5A5A5A5
+
+
+# ---- the counter hash, uint32 emulated in int64 -----------------------------
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 tensors holding uint32 values; split in
+    16-bit halves so no intermediate exceeds 2^49 (torch has no complete
+    uint32 arithmetic, and a full 32x32 product would overflow int64)."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer on int64-held uint32 values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x
+
+
+def tile_seeds(seed, rows: torch.Tensor, tile: int, tile_off: int = 0):
+    """Per-row hash seed: fmix32(seed + (tile_off + row // tile) * golden)."""
+    t = (tile_off + rows // tile) & _MASK32
+    return _fmix32((_mul32(t, _GOLDEN) + (int(seed) & _MASK32)) & _MASK32)
+
+
+def hash_bits(s: torch.Tensor, ctr: torch.Tensor) -> torch.Tensor:
+    """fmix32(fmix32(ctr + s) ^ (s * golden)), broadcast over s and ctr."""
+    return _fmix32(_fmix32((ctr + s) & _MASK32) ^ _mul32(s, _GOLDEN))
+
+
+def gumbel_noise(s: torch.Tensor, rows_in_tile: torch.Tensor, width: int):
+    """[R, width] Gumbel noise for rows with hash seeds ``s`` [R] at counters
+    ``row_in_tile * width + col``: u = (bits >> 8) * 2^-24 + 1e-12 in float32,
+    G = -log(-log u)."""
+    col = torch.arange(width, dtype=torch.int64, device=s.device)
+    ctr = rows_in_tile[:, None] * width + col[None, :]
+    bits = hash_bits(s[:, None], ctr)
+    u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24)) + 1e-12
+    return -torch.log(-torch.log(u))
+
+
+# ---- plain versions ----------------------------------------------------------
+_PLAIN_ROWS = 1 << 16  # rows per step of the plain versions (bounds memory)
+
+
+def stats_from_labels_reference(feat, labels, sub, valid, k: int):
+    """Plain version of kernel B: ``[LEFT K | RIGHT K] x F`` float32 sums of
+    the valid rows of ``feat`` by (sub, label)."""
+    f = feat.shape[1]
+    out = torch.zeros((2 * k, f), dtype=torch.float32, device=feat.device)
+    v = valid.bool()
+    rows = (sub.long() * k + labels.long())[v]
+    out.index_add_(0, rows, feat[v].to(torch.float32))
+    return out
+
+
+def fused_assign_reference(feat, valid, phi_mat, log_w, seed, tile_off=0,
+                           hard=False, *, tile: int = 512):
+    """Plain version of kernel A.  Returns ``(labels int32 [N], sub int32
+    [N], stats float32 [2K, F] rows [LEFT | RIGHT])``."""
+    n = feat.shape[0]
+    k = log_w.shape[0]
+    seed = int(seed)
+    labels = torch.empty(n, dtype=torch.int32, device=feat.device)
+    sub = torch.empty(n, dtype=torch.int32, device=feat.device)
+    noise = 0.0 if hard else 1.0
+    for p0 in range(0, n, _PLAIN_ROWS):
+        p1 = min(n, p0 + _PLAIN_ROWS)
+        ll = feat[p0:p1] @ phi_mat                          # [R, 2K]
+        logits = ll[:, :k] + log_w[None, :]
+        logits = torch.where(torch.isnan(logits), float("-inf"), logits)
+        rows = torch.arange(p0, p1, dtype=torch.int64, device=feat.device)
+        s = tile_seeds(seed, rows, tile, tile_off)
+        rit = rows % tile
+        lab = torch.argmax(logits + gumbel_noise(s, rit, k) * noise, dim=-1)
+        delta = ll[:, k:].gather(1, lab[:, None])[:, 0]
+        g2 = gumbel_noise(s ^ _SUB_SALT, rit, 2)
+        side = delta + (g2[:, 1] - g2[:, 0]) + 1e-30 > 0.0
+        labels[p0:p1] = lab.to(torch.int32)
+        sub[p0:p1] = side.to(torch.int32)
+    return labels, sub, stats_from_labels_reference(feat, labels, sub, valid, k)
+
+
+# ---- wrappers ----------------------------------------------------------------
+def _check_cuda(name: str, **tensors):
+    dev = None
+    for key, (t, dtype, shape) in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {key} is on {t.device}, expected cuda")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name}: {key} is on {t.device}, not {dev}")
+        dev = t.device
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} has dtype {t.dtype}, "
+                            f"expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+MAX_K = 128  # the assignment kernel holds a row's 2K <= 256 columns in a warp
+
+
+def _stats_scratch(n: int, k: int, f: int, device) -> torch.Tensor:
+    chunk = _build.load().dpmm_stats_chunk()
+    n_chunks = -(-n // chunk)
+    return torch.empty((n_chunks, 2 * k, f), dtype=torch.float32,
+                       device=device)
+
+
+def stats_from_labels(feat, labels, sub, valid, k: int):
+    """``[LEFT K | RIGHT K] x F`` float32 statistics of ``feat [N, F]`` by
+    flat ``labels``/``sub`` ``int32 [N]``, rows masked by ``valid bool [N]``.
+    Deterministic on the card (fixed-order partial sums)."""
+    if feat.device.type == "cpu":
+        return stats_from_labels_reference(feat, labels, sub, valid, k)
+    n, f = feat.shape
+    _check_cuda("stats_from_labels",
+                feat=(feat, torch.float32, (n, f)),
+                labels=(labels, torch.int32, (n,)),
+                sub=(sub, torch.int32, (n,)),
+                valid=(valid, torch.bool, (n,)))
+    stats = torch.empty((2 * k, f), dtype=torch.float32, device=feat.device)
+    partial = _stats_scratch(n, k, f, feat.device)
+    lib = _build.load()
+    rc = lib.dpmm_stats_from_labels(
+        feat.data_ptr(), labels.data_ptr(), sub.data_ptr(), valid.data_ptr(),
+        n, f, k, partial.data_ptr(), stats.data_ptr(),
+        torch.cuda.current_stream(feat.device).cuda_stream,
+    )
+    _build.check(rc, "stats_from_labels")
+    stats_from_labels.launches += 1
+    return stats
+
+
+stats_from_labels.launches = 0
+
+
+def fused_assign(feat, valid, phi_mat, log_w, seed, tile_off: int = 0,
+                 hard: bool = False, *, tile: int = 512):
+    """One sweep's assignment + statistics pass.
+
+    feat    [N, F] float32 feature cache
+    valid   bool [N]; invalid rows get labels but add no statistics
+    phi_mat [F, 2K] float32, columns [whole K | delta K] (assign._delta_phi)
+    log_w   [K] float32 mixture log-weights (-inf inactive)
+    seed    int, or an int32 [1] tensor on the card (read by the kernel, so
+            the sweep needs no host sync to draw it)
+    hard    zero the label noise (sub-labels are always sampled)
+    tile    rows per hash tile (the TPU kernel's tile; 512 by default)
+
+    Returns ``(labels int32 [N], sub int32 [N], stats float32 [2K, F])``
+    with stats rows ``[LEFT K | RIGHT K]``.  The ll product is exact float32
+    whatever ``ll_precision`` the config names.
+    """
+    if feat.device.type == "cpu":
+        if torch.is_tensor(seed):
+            seed = int(seed.reshape(-1)[0])
+        return fused_assign_reference(feat, valid, phi_mat, log_w, seed,
+                                      tile_off, hard, tile=tile)
+    n, f = feat.shape
+    k = log_w.shape[0]
+    if k > MAX_K:
+        raise ValueError(f"fused_assign: K={k} exceeds the kernel's "
+                         f"MAX_K={MAX_K}")
+    if not torch.is_tensor(seed):
+        seed = torch.tensor([int(seed)], dtype=torch.int32, device=feat.device)
+    _check_cuda("fused_assign",
+                feat=(feat, torch.float32, (n, f)),
+                valid=(valid, torch.bool, (n,)),
+                phi_mat=(phi_mat, torch.float32, (f, 2 * k)),
+                log_w=(log_w, torch.float32, (k,)),
+                seed=(seed, torch.int32, (1,)))
+    labels = torch.empty(n, dtype=torch.int32, device=feat.device)
+    sub = torch.empty(n, dtype=torch.int32, device=feat.device)
+    stats = torch.empty((2 * k, f), dtype=torch.float32, device=feat.device)
+    partial = _stats_scratch(n, k, f, feat.device)
+    lib = _build.load()
+    rc = lib.dpmm_fused_assign(
+        feat.data_ptr(), valid.data_ptr(), phi_mat.data_ptr(),
+        log_w.data_ptr(), seed.data_ptr(), int(tile_off), int(bool(hard)),
+        int(tile), n, f, k, labels.data_ptr(), sub.data_ptr(),
+        partial.data_ptr(), stats.data_ptr(),
+        torch.cuda.current_stream(feat.device).cuda_stream,
+    )
+    _build.check(rc, "fused_assign")
+    fused_assign.launches += 1
+    return labels, sub, stats
+
+
+fused_assign.launches = 0

@@ -1,0 +1,250 @@
+"""Host-side engine and training loop, single device.
+
+PyTorch counterpart of :mod:`dpmmsubclusters_tpu.sampler.driver` without a
+device mesh.  PyTorch runs eagerly, so a "fused block" is a Python loop of
+``fused_block`` sweeps followed by one smart sub-label pass; the loop then
+synchronizes once per block to read the cluster counts, stamp the block's
+time and pick the next table-capacity tier.
+
+Scheduling follows ``run_model`` (src/dp-parallel-sampling.jl:354-361):
+``final`` = iter >= iters - argmax_sample_stop (argmax labels) and
+``no_more_splits`` = iter >= iters - split_stop, or K >= max_clusters.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..config import DPMMConfig
+from . import assign as assign_mod
+from . import moves as moves_mod
+from .smart import smart_sublabels
+from .sweep import make_smart_pass, make_sweep
+from .table import active_count, compute_posteriors, init_table, retier
+
+
+def tier_sequence(k_max: int) -> list:
+    """Capacity tiers: powers of two from 16 up to (and including) k_max."""
+    tiers = []
+    t = 16
+    while t < k_max:
+        tiers.append(t)
+        t *= 2
+    tiers.append(k_max)
+    return tiers
+
+
+def desired_tier(k_act: int, cur: int, tiers: list) -> int:
+    """Table capacity for the next block: grow when split headroom drops
+    under 4x the live cluster count; shrink only when capacity exceeds 16x
+    (to >= 8x), so the two thresholds never flap."""
+    k_act = max(k_act, 1)
+    if 4 * k_act > cur:
+        cands = [t for t in tiers if t >= 4 * k_act]
+        return cands[0] if cands else tiers[-1]
+    if 16 * k_act <= cur:
+        cands = [t for t in tiers if t >= 8 * k_act]
+        t = cands[0] if cands else tiers[-1]
+        if t < cur:
+            return t
+    return cur
+
+
+@dataclasses.dataclass
+class DPMMState:
+    """The complete sampler state.  Per-point streams are flat int32 [N]."""
+
+    table: Any                 # dict of tensors (the cluster table)
+    labels: torch.Tensor       # int32 [N] slot ids
+    sublabels: torch.Tensor    # int32 [N] in {0, 1}
+    gen: torch.Generator       # every random draw of the run
+    step: int = 0
+
+
+@dataclasses.dataclass
+class IterStats:
+    """Per-iteration history (run_model's histories): cluster count, log
+    posterior, wall time and, with ground truth, NMI and VI."""
+
+    k: list
+    log_posterior: list
+    times: list
+    nmi: list
+    vi: list
+
+    @staticmethod
+    def empty():
+        return IterStats([], [], [], [], [])
+
+
+class DPMMEngine:
+    """The sampler for one (family, config, device)."""
+
+    def __init__(self, family, cfg: DPMMConfig, device="cuda"):
+        self.family = family
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self._sweep = make_sweep(family, cfg)
+        self._smart_on = cfg.resolved_smart_splits(family.name)
+        self._smart = make_smart_pass(family, cfg) if self._smart_on else None
+
+    # -- data placement -----------------------------------------------------
+    def shard_points(self, x: np.ndarray):
+        """Place [N, D] host points on the device.  Returns ``(points, valid,
+        n_total)``; no padding is needed, so every row is valid."""
+        points = torch.as_tensor(np.ascontiguousarray(x, np.float32)).to(
+            self.device)
+        valid = torch.ones(points.shape[0], dtype=torch.bool,
+                           device=self.device)
+        return points, valid, float(points.shape[0])
+
+    def featurize(self, points: torch.Tensor) -> torch.Tensor:
+        """The f32 feature cache [N, F] = [1, x, triu(x x^T)], built once per
+        fit; every kernel streams its rows (F is not padded)."""
+        return self.family.features(points)
+
+    # -- state --------------------------------------------------------------
+    def _stats(self, points, valid, labels, sublabels, k: int):
+        return assign_mod.lr_to_full(
+            assign_mod.stats_only(points, valid, labels, sublabels, k))
+
+    def init_state(self, gen: torch.Generator, points, valid, prior,
+                   outlier_prior=None,
+                   init_labels: Optional[np.ndarray] = None) -> DPMMState:
+        """Random first assignment, one statistics pass, the smart init of
+        the first clusters and the first parameter draw (reference
+        ``init_model_from_data`` + ``init_first_clusters!``,
+        src/dp-parallel-sampling.jl:36-78)."""
+        cfg, family = self.cfg, self.family
+        n = points.shape[0]
+        d = prior["m"].shape[-1]
+        offset = 1 if cfg.outlier_mod > 0 else 0
+        labels = torch.randint(offset, offset + cfg.init_clusters, (n,),
+                               generator=gen, device=self.device,
+                               dtype=torch.int32)
+        sublabels = torch.randint(0, 2, (n,), generator=gen,
+                                  device=self.device, dtype=torch.int32)
+        if init_labels is not None:
+            labels = torch.as_tensor(
+                np.asarray(init_labels, np.int32) + offset).to(self.device)
+
+        flat3 = self._stats(points, valid, labels, sublabels, cfg.k_max)
+        if self._smart_on:
+            stats = family.stats_from_flat(flat3, d)
+            stats_w = {name: a[:, 0] for name, a in stats.items()}
+            sublabels = smart_sublabels(
+                assign_mod.raw_points(points, d), valid, labels, sublabels,
+                stats_w, stats_w["n"] > 0, cfg.max_split_iter)
+            flat3 = self._stats(points, valid, labels, sublabels, cfg.k_max)
+
+        prior = {k: v.to(self.device) for k, v in prior.items()}
+        if outlier_prior is not None:
+            outlier_prior = {k: v.to(self.device)
+                             for k, v in outlier_prior.items()}
+        table = init_table(family, prior, outlier_prior, cfg, d,
+                           device=self.device)
+        table = compute_posteriors(
+            family, {**table, "stats": family.stats_from_flat(flat3, d)})
+        table = moves_mod.sample_params_step(gen, table, cfg.alpha,
+                                             cfg.outlier_mod, family)
+        return DPMMState(table=table, labels=labels, sublabels=sublabels,
+                         gen=gen, step=0)
+
+    # -- sweeps -------------------------------------------------------------
+    def step(self, state: DPMMState, points, valid, n_total, final: bool,
+             no_more_splits: bool):
+        """One Gibbs sweep; returns (new_state, metrics of device scalars)."""
+        table, labels, sublabels, metrics = self._sweep(
+            state.table, state.labels, state.sublabels, state.gen, points,
+            valid, n_total, final, no_more_splits)
+        return (DPMMState(table, labels, sublabels, state.gen, state.step + 1),
+                metrics)
+
+    def step_block(self, state: DPMMState, points, valid, n_total,
+                   finals, no_more_splits):
+        """``len(finals)`` sweeps, then one smart sub-label pass for the
+        slots born in the block; metrics come back stacked [B] on the
+        device."""
+        cap = self.cfg.max_clusters
+        ms = []
+        for f, nm in zip(finals, no_more_splits):
+            if cap is not None and not nm:
+                nm = int(active_count(state.table)) >= cap
+            state, m = self.step(state, points, valid, n_total, bool(f),
+                                 bool(nm))
+            ms.append(m)
+        if self._smart is not None:
+            table, sublabels = self._smart(state.table, state.labels,
+                                           state.sublabels, points, valid)
+            state = DPMMState(table, state.labels, sublabels, state.gen,
+                              state.step)
+        metrics = {name: torch.stack([m[name] for m in ms]) for name in ms[0]}
+        return state, metrics
+
+
+def migrate(family, state: DPMMState, k_new: int) -> DPMMState:
+    """Resize the table to ``k_new`` slots and remap the labels."""
+    table, lut = retier(family, state.table, k_new)
+    return DPMMState(table, lut[state.labels.long()], state.sublabels,
+                     state.gen, state.step)
+
+
+def run_loop(engine: DPMMEngine, state: DPMMState, points, valid, n_total,
+             iters: int, *, first_iter: int = 0,
+             gt: Optional[np.ndarray] = None, n_valid: Optional[int] = None,
+             verbose: Optional[bool] = None,
+             tiers: Optional[list] = None) -> tuple:
+    """The training loop (reference ``run_model``,
+    src/dp-parallel-sampling.jl:336-404), in blocks of ``fused_block``
+    sweeps.
+
+    Every block ends with one synchronization: the block's wall time over
+    its sweeps fills ``hist.times`` (no unfenced entries), and with ground
+    truth the block's NMI/VI are computed from the labels afterwards (not
+    timed).  ``tiers`` turns on adaptive table capacity: at each block
+    boundary the table migrates to ``desired_tier``, never below the live
+    cluster count."""
+    cfg = engine.cfg
+    verbose = cfg.verbose if verbose is None else verbose
+    hist = IterStats.empty()
+    block = max(1, cfg.fused_block)
+    it = first_iter
+    while it < iters:
+        b = min(block, iters - it)
+        rng_it = np.arange(it, it + b)
+        finals = rng_it >= iters - cfg.argmax_sample_stop
+        nms = rng_it >= iters - cfg.split_stop
+        t0 = time.perf_counter()
+        state, metrics = engine.step_block(state, points, valid, n_total,
+                                           finals, nms)
+        ks = metrics["k"].tolist()                 # the block's fence
+        dt = time.perf_counter() - t0
+        it += b
+        hist.k.extend(int(k) for k in ks)
+        hist.log_posterior.extend(metrics["log_posterior"].tolist())
+        hist.times.extend([dt / b] * b)
+        if gt is not None:
+            from ..utils.metrics import nmi as nmi_fn, varinfo
+
+            labels_h = state.labels.cpu().numpy()[:n_valid]
+            hist.nmi.extend([nmi_fn(gt, labels_h)] * b)
+            hist.vi.extend([varinfo(gt, labels_h)] * b)
+        if verbose:
+            msg = (f"iter {it}: K={ks[-1]} "
+                   f"log_post={hist.log_posterior[-1]:.2f} "
+                   f"t={dt / b * 1e3:.1f}ms/sweep")
+            if gt is not None:
+                msg += f" nmi={hist.nmi[-1]:.3f} vi={hist.vi[-1]:.3f}"
+            print(msg, flush=True)
+        if tiers is not None and it < iters:
+            cur = state.table["active"].shape[0]
+            want = desired_tier(ks[-1], cur, tiers)
+            if want < ks[-1]:
+                want = cur  # never shrink below the live clusters
+            if want != cur:
+                state = migrate(engine.family, state, want)
+    return state, hist

@@ -1,0 +1,147 @@
+"""One full restricted-Gibbs sweep, and the block-boundary smart pass.
+
+PyTorch counterpart of :mod:`dpmmsubclusters_tpu.sampler.sweep`, with the
+sub-steps in the reference's order (``group_step``,
+src/local_clusters_actions.jl:658-673):
+
+  A. sample cluster params + weights                 (sample_clusters!)
+  C-E. labels, sub-labels and statistics in one pass (kernel A)
+  F. reset bad clusters (sub-stats -> their expectation)
+  G. split moves, then merge moves
+  H. deactivate empty slots
+
+The TPU version's ``lax.cond`` gates and in-kernel ``enable`` flags become
+Python ``if``s on host values, or go away where running the gated work
+gives the same result.  A default sweep makes no host sync, so the host
+can queue work ahead of the card; only ``exact_post_move_stats`` (and a
+``max_clusters`` cap, in the driver) read device state per sweep.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import assign as assign_mod
+from . import moves
+from . import smart as smart_mod
+from .table import active_count, compute_posteriors, log_posterior, side_tile
+
+
+def _set_stats(family, table, flat3):
+    stats = family.stats_from_flat(flat3, table["prior"]["m"].shape[-1])
+    return compute_posteriors(family, {**table, "stats": stats})
+
+
+def _stats_pass(family, table, points, valid, labels, sublabels):
+    """Table statistics recomputed from the given labels (kernel B)."""
+    stats_lr = assign_mod.stats_only(points, valid, labels, sublabels,
+                                     table["active"].shape[0])
+    return _set_stats(family, table, assign_mod.lr_to_full(stats_lr))
+
+
+def make_smart_pass(family, cfg):
+    """The smart sub-label pass (PCA + 2-means init and a statistics
+    refresh) for the slots marked ``needs_smart`` by split_move, clearing the
+    marks.  Only newborn slots are (re)initialized, matching the reference's
+    per-newborn ``smart_cluster_init!`` (src/local_clusters_actions.jl:
+    374-378).  A no-op after one host sync when nothing is marked."""
+
+    def smart_pass(table, labels, sublabels, points, valid):
+        mask = table["needs_smart"] & table["active"] & ~table["is_outlier"]
+        if not bool(mask.any()):
+            return table, sublabels
+        d = table["prior"]["m"].shape[-1]
+        stats_w = {name: a[:, 0] for name, a in table["stats"].items()}
+        sub2 = smart_mod.smart_sublabels(
+            assign_mod.raw_points(points, d), valid, labels, sublabels,
+            stats_w, mask, cfg.max_split_iter)
+        table = _stats_pass(family, table, points, valid, labels, sub2)
+        return {**table, "needs_smart": table["needs_smart"] & ~mask}, sub2
+
+    return smart_pass
+
+
+def make_sweep(family, cfg):
+    """Build the sweep function:
+
+      sweep(table, labels, sublabels, gen, points, valid, n_total,
+            final, no_more_splits) -> (table, labels, sublabels, metrics)
+
+    ``final`` and ``no_more_splits`` are host bools; ``metrics`` holds
+    device scalars (``k``, ``log_posterior``) so a block of sweeps needs no
+    host sync for them."""
+    alpha = float(cfg.alpha)
+    outlier_mod = float(cfg.outlier_mod)
+    freeze_outlier = outlier_mod > 0 and not cfg.resample_outlier_params
+
+    def redraw_and_recompute(gen, flag, slot_mask, table, labels, sublabels,
+                             points, valid):
+        """Reference-exact chain (``exact_post_move_stats``): points of the
+        flagged slots get fresh Bernoulli(1/2) sub-labels and the statistics
+        are recomputed from realized labels (reset_bad_clusters! /
+        split_cluster_local_worker!, :265-278,481-516)."""
+        if not bool(flag):
+            return table, sublabels
+        fresh = torch.randint(0, 2, sublabels.shape, generator=gen,
+                              device=sublabels.device, dtype=sublabels.dtype)
+        sublabels = torch.where(slot_mask[labels.long()], fresh, sublabels)
+        return (_stats_pass(family, table, points, valid, labels, sublabels),
+                sublabels)
+
+    def sweep(table, labels, sublabels, gen, points, valid, n_total,
+              final: bool, no_more_splits: bool):
+        # A: parameter draws
+        table = moves.sample_params_step(
+            gen, table, alpha, outlier_mod, family,
+            reference_gate=bool(cfg.reference_splittable_gate),
+            freeze_outlier=freeze_outlier,
+        )
+
+        # C + D + E: fused assignment & statistics (kernel A); the seed
+        # stays on the device so drawing it needs no sync
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=gen,
+                             device=points.device, dtype=torch.int32)
+        labels, sublabels, stats_lr = assign_mod.assign_and_stats(
+            points, valid, table["params"]["phi"], table["log_weights"],
+            torch.log(torch.clamp(table["lr_weights"], min=1e-37)),
+            seed, bool(final or cfg.hard_clustering),
+        )
+        table = _set_stats(family, table, assign_mod.lr_to_full(stats_lr))
+
+        # F: reset clusters with an empty sub-cluster
+        table, any_bad, bad = moves.reset_bad(table, family)
+        if cfg.exact_post_move_stats:
+            table, sublabels = redraw_and_recompute(
+                gen, any_bad, bad, table, labels, sublabels, points, valid)
+
+        # G: split + merge moves, sharing one [K, 3] log-marginal evaluation
+        # (slots whose stats change in between are merge-ineligible)
+        if not no_more_splits:
+            k_slots = table["active"].shape[0]
+            mask3 = table["active"][:, None].expand(k_slots, 3)
+            lm3 = family.log_marginal(
+                side_tile(table["prior"]), table["post"], table["stats"],
+                mask3, cache=family.posterior_cache(table["post"], mask3),
+            )
+            table, labels, sublabels, any_split, touched = moves.split_move(
+                gen, table, labels, sublabels, alpha, final, family, lm=lm3)
+            if cfg.exact_post_move_stats:
+                table, sublabels = redraw_and_recompute(
+                    gen, any_split, touched, table, labels, sublabels,
+                    points, valid)
+            table, labels, sublabels = moves.merge_move(
+                gen, table, labels, sublabels, alpha, final, family,
+                lm_w=lm3[:, 0], candidates=cfg.merge_candidates,
+            )
+
+        # H: drop empty slots
+        table = moves.remove_empty(table, outlier_mod)
+        metrics = {
+            "k": active_count(table),
+            "log_posterior": (
+                log_posterior(family, table, alpha, float(n_total))
+                if cfg.track_posterior else torch.zeros((), device=points.device)
+            ),
+        }
+        return table, labels, sublabels, metrics
+
+    return sweep

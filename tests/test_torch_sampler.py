@@ -1,0 +1,317 @@
+"""The port's sampler modules (assign, table, moves, smart, tiers) against the
+JAX package, with identical tables carried over by ``interop``.
+Deterministic math is compared by tolerance; sampled moves by behaviour."""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from dpmmsubclusters_tpu.config import DPMMConfig as JCfg  # noqa: E402
+from dpmmsubclusters_tpu.priors import GAUSSIAN as JG  # noqa: E402
+from dpmmsubclusters_tpu.sampler import assign as JA  # noqa: E402
+from dpmmsubclusters_tpu.sampler import driver as JD  # noqa: E402
+from dpmmsubclusters_tpu.sampler import moves as JM  # noqa: E402
+from dpmmsubclusters_tpu.sampler import smart as JS  # noqa: E402
+from dpmmsubclusters_tpu.sampler import table as JT  # noqa: E402
+from dpmmsubclusters_tpu_torch.interop import (  # noqa: E402
+    state_from_jax, table_from_jax)
+from dpmmsubclusters_tpu_torch.priors import GAUSSIAN as TG  # noqa: E402
+from dpmmsubclusters_tpu_torch.sampler import assign as TA  # noqa: E402
+from dpmmsubclusters_tpu_torch.sampler import driver as TD  # noqa: E402
+from dpmmsubclusters_tpu_torch.sampler import moves as TM  # noqa: E402
+from dpmmsubclusters_tpu_torch.sampler import smart as TS  # noqa: E402
+from dpmmsubclusters_tpu_torch.sampler import table as TT  # noqa: E402
+
+# deterministic float32 table math (the frameworks round differently in the
+# last bits); statistics sums as in test_torch_kernels
+RTOL, ATOL = 1e-5, 1e-4
+STATS_RTOL, STATS_ATOL = 1e-4, 1e-3
+
+
+def _np(tree):
+    return jax.tree.map(lambda a: np.asarray(a), tree)
+
+
+def _close(got, want, rtol=RTOL, atol=ATOL):
+    if isinstance(want, dict):
+        assert set(got) == set(want), (set(got), set(want))
+        for k in want:
+            _close(got[k], want[k], rtol, atol)
+        return
+    got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = np.asarray(want)
+    if want.dtype == bool:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+def _jax_table(counts_lr, d=2, k_max=8, seed=0, sample=True):
+    """A JAX table whose slot i has left/right counts counts_lr[i] and the
+    matching Gaussian statistics (tests/test_moves.py's fixture), with
+    parameters drawn by the JAX sampler."""
+    cfg = JCfg(k_max=k_max, burnout=4)
+    table = JT.init_table(JG, JG.default_prior(d), None, cfg, d)
+    rng = np.random.default_rng(seed)
+    n = np.zeros((k_max, 3), np.float32)
+    sx = np.zeros((k_max, 3, d), np.float32)
+    sxx = np.zeros((k_max, 3, d, d), np.float32)
+    for i, (nl, nr) in enumerate(counts_lr):
+        for side, cnt, center in ((1, nl, -2.0), (2, nr, 2.0)):
+            if cnt == 0:
+                continue
+            pts = (rng.normal(size=(cnt, d)) + center + 3 * i).astype(
+                np.float32)
+            n[i, side], sx[i, side], sxx[i, side] = cnt, pts.sum(0), \
+                pts.T @ pts
+        n[i, 0], sx[i, 0], sxx[i, 0] = n[i, 1:].sum(), sx[i, 1:].sum(0), \
+            sxx[i, 1:].sum(0)
+    table = {**table, "active": jnp.asarray(np.arange(k_max) < len(counts_lr)),
+             "stats": {"n": jnp.asarray(n), "sum_x": jnp.asarray(sx),
+                       "sum_xx": jnp.asarray(sxx)}}
+    table = JT.compute_posteriors(JG, table)
+    if sample:
+        table = JM.sample_params_step(jax.random.PRNGKey(seed), table, 10.0,
+                                      0.0, JG)
+    return table
+
+
+# one table shape (K=8, D=2) for every comparison: JAX compiles each op
+# once per shape.  Slots 2-4 have an empty sub-cluster or no points.
+COUNTS = [(40, 50), (30, 30), (60, 0), (0, 25), (0, 0)]
+
+
+@pytest.fixture(scope="module")
+def jtab():
+    return _jax_table(COUNTS)
+
+
+def test_delta_phi_and_assign_match_jax(rng, jtab):
+    """assign_and_stats on a JAX-sampled table carried over by interop equals
+    the JAX package's Pallas path (interpreter) on the same seed."""
+    n, d = 1024, 2
+    jt = jtab
+    tt = table_from_jax(_np(jt))
+    log_lrw = jnp.log(jt["lr_weights"])
+    phi_mat = TA._delta_phi(tt["params"]["phi"], torch.log(tt["lr_weights"]))
+    _close(phi_mat, JA._delta_phi(jt["params"]["phi"], log_lrw))
+
+    x = (rng.standard_normal((n, d)) * 3).astype(np.float32)
+    feat = np.array(JG.features(jnp.asarray(x)))
+    valid = np.arange(n) < n - 10
+    key = jax.random.PRNGKey(4)
+    seed = int(jax.random.randint(key, (), 0, 2**31 - 1, jnp.int32))
+    tile = JA.pick_tile(512, feat.shape[1], 8, feat.shape[1],
+                        built_features=False)
+    for hard in (True, False):
+        lj, sj, stj = JA.assign_and_stats(
+            key, jnp.asarray(feat), JA.block_stream(jnp.asarray(valid)),
+            jt["params"]["phi"], jt["log_weights"], log_lrw,
+            jnp.asarray(hard), JG, 512, use_pallas=True, interpret=True,
+            ll_precision="highest", stats_precision="highest",
+            x_is_features=True)
+        lt, st_, stt = TA.assign_and_stats(
+            torch.from_numpy(feat), torch.from_numpy(valid),
+            tt["params"]["phi"], tt["log_weights"],
+            torch.log(tt["lr_weights"]), seed, hard, tile=tile)
+        np.testing.assert_array_equal(lt.numpy(), np.asarray(lj).reshape(-1))
+        np.testing.assert_array_equal(st_.numpy(), np.asarray(sj).reshape(-1))
+        _close(stt, stj, STATS_RTOL, STATS_ATOL)
+        _close(TA.lr_to_full(stt), JA.lr_to_full(stj), STATS_RTOL,
+               STATS_ATOL)
+
+
+def test_posteriors_and_log_posterior_match_jax(jtab):
+    jt = jtab
+    tt = table_from_jax(_np(jt))
+    _close(TT.compute_posteriors(TG, tt)["post"],
+           JT.compute_posteriors(JG, jt)["post"])
+    _close(TT.log_posterior(TG, tt, 10.0, 230.0),
+           JT.log_posterior(JG, jt, 10.0, jnp.float32(230.0)))
+    assert int(TT.active_count(tt)) == int(JT.active_count(jt))
+
+
+def test_hastings_ratios_match_jax(rng):
+    """Sums of lgamma terms up to lgamma(500) ~ 2600, where one float32 ulp
+    is 2.4e-4 and the two frameworks' lgamma differ by an ulp: atol 1e-3."""
+    n = np.abs(rng.standard_normal((6, 3)) * 50).astype(np.float32) + 1
+    lm = (rng.standard_normal((6, 3)) * 100).astype(np.float32)
+    _close(TM.split_log_hastings(3.0, torch.from_numpy(n),
+                                 torch.from_numpy(lm)),
+           JM.split_log_hastings(3.0, jnp.asarray(n), jnp.asarray(lm)),
+           atol=1e-3)
+    args = [rng.uniform(1, 500, 7).astype(np.float32) for _ in range(2)] + \
+        [(rng.standard_normal(7) * 100).astype(np.float32) for _ in range(3)]
+    _close(TM.merge_log_hastings(10.0, *map(torch.from_numpy, args)),
+           JM.merge_log_hastings(10.0, *map(jnp.asarray, args)), atol=1e-3)
+
+
+def test_reset_bad_and_remove_empty_match_jax(jtab):
+    jt = {**jtab, "splittable": jnp.asarray([True] * 5 + [False] * 3)}
+    tt = table_from_jax(_np(jt))
+    jr, j_any, j_bad = JM.reset_bad(jt, JG)
+    tr, t_any, t_bad = TM.reset_bad(tt, TG)
+    _close(tr, _np(jr))
+    assert bool(t_any) == bool(j_any)
+    np.testing.assert_array_equal(t_bad.numpy(), np.asarray(j_bad))
+    for om in (0.0, 0.05):
+        jo = {**jt, "is_outlier": jnp.asarray([True] + [False] * 7)}
+        _close(TM.remove_empty(table_from_jax(_np(jo)), om),
+               _np(JM.remove_empty(jo, om)))
+
+
+def test_retier_matches_jax(jtab):
+    jt = {**jtab, "active": jnp.asarray([True, False, True, True, True]
+                                        + [False] * 3)}
+    tt = table_from_jax(_np(jt))
+    for k_new in (4, 16):
+        jr, jlut = JT.retier(JG, jt, k_new)
+        tr, tlut = TT.retier(TG, tt, k_new)
+        _close(tr, _np(jr))
+        np.testing.assert_array_equal(tlut.numpy(), np.asarray(jlut))
+
+
+def test_sample_params_step_gate_matches_jax():
+    """The history ring buffer, splittable gate and weight masking are
+    deterministic given the table; the draws are checked for shape and
+    masking (their moments are tested in test_torch_niw)."""
+    jt = _jax_table(COUNTS, sample=False)
+    jt = {**jt, "hist": jnp.asarray(
+        np.tile(np.linspace(-300, -299.995, 4, dtype=np.float32), (8, 1)))}
+    tt = table_from_jax(_np(jt))
+    for gate in (False, True):
+        js = JM.sample_params_step(jax.random.PRNGKey(0), jt, 10.0, 0.0, JG,
+                                   reference_gate=gate)
+        ts = TM.sample_params_step(torch.Generator().manual_seed(0), tt, 10.0,
+                                   0.0, TG, reference_gate=gate)
+        _close(ts["hist"], js["hist"], rtol=1e-5, atol=1e-2)
+        np.testing.assert_array_equal(ts["splittable"].numpy(),
+                                      np.asarray(js["splittable"]))
+        np.testing.assert_array_equal(torch.isinf(ts["log_weights"]).numpy(),
+                                      np.isinf(np.asarray(js["log_weights"])))
+        assert ts["params"]["phi"].shape == js["params"]["phi"].shape
+        np.testing.assert_allclose(ts["lr_weights"].sum(-1).numpy(), 1.0,
+                                   rtol=1e-5)
+
+
+def test_split_move_allocates_free_slots():
+    """tests/test_moves.py's split case on the port: a forced-splittable
+    bimodal slot splits into a free slot and moves its right points."""
+    tt = table_from_jax(_np(_jax_table([(50, 50), (30, 30)])))
+    tt = {**tt, "splittable": torch.tensor([True, False] + [False] * 6)}
+    labels = torch.tensor([0] * 100 + [1] * 60, dtype=torch.int32)
+    sub = torch.tensor([0] * 50 + [1] * 50 + [0] * 60, dtype=torch.int32)
+    t2, l2, _, any_split, touched = TM.split_move(
+        torch.Generator().manual_seed(0), tt, labels, sub, 10.0, False, TG)
+    assert bool(any_split)
+    active = t2["active"].numpy()
+    assert active.sum() == 3
+    new_slot = int(np.flatnonzero(active)[-1])
+    l2 = l2.numpy()
+    assert (l2[50:100] == new_slot).all() and (l2[:50] == 0).all()
+    assert (l2[100:] == 1).all()
+    assert touched[0] and touched[new_slot] and not touched[1]
+    assert t2["needs_smart"][[0, new_slot]].all()
+    _, _, _, none, _ = TM.split_move(torch.Generator().manual_seed(0), tt,
+                                     labels, sub, 10.0, True, TG)
+    assert not bool(none)   # final sweeps never split
+
+
+@pytest.mark.parametrize("candidates", [None, 1])
+def test_merge_move_merges_identical_clusters(candidates):
+    d = 2
+    pts = np.random.default_rng(1).normal(size=(200, d)).astype(np.float32)
+    n = np.zeros((8, 3), np.float32)
+    sx = np.zeros((8, 3, d), np.float32)
+    sxx = np.zeros((8, 3, d, d), np.float32)
+    for i, h in enumerate([pts[:100], pts[100:]]):
+        a, b = h[:50], h[50:]
+        n[i] = [100, 50, 50]
+        sx[i] = [h.sum(0), a.sum(0), b.sum(0)]
+        sxx[i] = [h.T @ h, a.T @ a, b.T @ b]
+    jt = JT.init_table(JG, JG.default_prior(d), None, JCfg(k_max=8), d)
+    jt = {**jt, "active": jnp.asarray([True, True] + [False] * 6),
+          "splittable": jnp.asarray([True, True] + [False] * 6),
+          "stats": {"n": jnp.asarray(n), "sum_x": jnp.asarray(sx),
+                    "sum_xx": jnp.asarray(sxx)}}
+    jt = JM.sample_params_step(jax.random.PRNGKey(0),
+                               JT.compute_posteriors(JG, jt), 10.0, 0.0, JG)
+    jt = {**jt, "splittable": jnp.asarray([True, True] + [False] * 6)}
+    tt = table_from_jax(_np(jt))
+    labels = torch.tensor([0] * 100 + [1] * 100, dtype=torch.int32)
+    sub = torch.tensor(([0] * 50 + [1] * 50) * 2, dtype=torch.int32)
+    t2, l2, s2 = TM.merge_move(torch.Generator().manual_seed(3), tt, labels,
+                               sub, 10.0, False, TG, candidates=candidates)
+    assert t2["active"].numpy().sum() == 1
+    assert (l2.numpy() == 0).all()
+    np.testing.assert_array_equal(s2.numpy(), [0] * 100 + [1] * 100)
+    np.testing.assert_allclose(t2["stats"]["n"][0].numpy(), [200, 100, 100])
+
+
+def test_merge_move_with_one_eligible_slot_changes_nothing(jtab):
+    """The JAX version skips the scan below two eligible slots; the port
+    runs it (no host sync) and must return the same table and labels."""
+    tt = table_from_jax(_np(jtab))
+    tt = {**tt, "splittable": torch.tensor([True] + [False] * 7)}
+    labels = torch.tensor([0] * 90 + [1] * 60, dtype=torch.int32)
+    sub = torch.tensor([0, 1] * 75, dtype=torch.int32)
+    t2, l2, s2 = TM.merge_move(torch.Generator().manual_seed(0), tt, labels,
+                               sub, 10.0, True, TG)
+    assert torch.equal(l2, labels) and torch.equal(s2, sub)
+    for name in ("active", "splittable", "lr_weights", "hist",
+                 "needs_smart"):
+        assert torch.equal(t2[name], tt[name]), name
+    _close(t2["stats"], tt["stats"], 0, 0)
+
+
+def test_smart_sublabels_and_eigvec_match_jax(rng):
+    n, d, k = 2048, 3, 4
+    centers = rng.normal(size=(k, d)) * 6
+    lab = rng.integers(0, k, size=n).astype(np.int32)
+    x = (centers[lab] + rng.normal(size=(n, d)) * [3.0, 1.0, 0.5]).astype(
+        np.float32)
+    sub = rng.integers(0, 2, size=n).astype(np.int32)
+    valid = np.arange(n) < n - 48
+    feat = np.asarray(JG.features(jnp.asarray(x)))
+    st = JA.stats_only(jnp.asarray(feat), JA.block_stream(jnp.asarray(valid)),
+                       JA.block_stream(jnp.asarray(lab)),
+                       JA.block_stream(jnp.asarray(sub)), k, JG, 512,
+                       x_is_features=True)
+    stats_w = JG.stats_from_flat(JA.lr_to_full(st)[:, 0], d)
+    mask = np.array([True, False, True, True])
+    want = JS.smart_sublabels(
+        jnp.asarray(x), JA.block_stream(jnp.asarray(valid)),
+        JA.block_stream(jnp.asarray(lab)), JA.block_stream(jnp.asarray(sub)),
+        stats_w, jnp.asarray(mask), 20)
+    got = TS.smart_sublabels(
+        torch.from_numpy(x), torch.from_numpy(valid), torch.from_numpy(lab),
+        torch.from_numpy(sub), table_from_jax(_np(stats_w)),
+        torch.from_numpy(mask), 20)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).reshape(-1))
+    cov = np.asarray(stats_w["sum_xx"]) / np.asarray(stats_w["n"])[:, None,
+                                                                    None]
+    _close(TS.top_eigvec(torch.from_numpy(cov)), JS.top_eigvec(
+        jnp.asarray(cov)), rtol=1e-4, atol=1e-4)
+
+
+def test_tiers_match_jax():
+    for k_max in (16, 64, 100, 128):
+        assert TD.tier_sequence(k_max) == JD.tier_sequence(k_max)
+    tiers = JD.tier_sequence(128)
+    for k_act in (1, 3, 4, 5, 9, 17, 33, 64, 100):
+        for cur in tiers:
+            assert (TD.desired_tier(k_act, cur, tiers)
+                    == JD.desired_tier(k_act, cur, tiers))
+
+
+def test_state_from_jax_flattens_streams():
+    jt = _np(_jax_table([(10, 10)]))
+    labels = np.arange(256, dtype=np.int32).reshape(2, 128) % 3
+    st = state_from_jax(jt, labels, labels % 2)
+    assert st.labels.shape == (256,) and st.labels.dtype == torch.int32
+    np.testing.assert_array_equal(st.labels.numpy(), labels.reshape(-1))
+    np.testing.assert_array_equal(st.sublabels.numpy(),
+                                  (labels % 2).reshape(-1))
+    assert st.table["active"].dtype == torch.bool
