@@ -4,14 +4,15 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 The port of :mod:`dpmmsubclusters_tpu` (JAX/Pallas on TPU), module for
 module: the Chang & Fisher restricted Gibbs sweeps with auxiliary 2-way
 sub-clusters and Metropolis-Hastings split/merge moves.  This package covers
-the Gaussian/NIW family on one device with the precomputed f32 feature
-cache; it imports ``torch`` and ``numpy``, never ``jax``.
+the Gaussian/NIW and multinomial/Dirichlet families on one device, with or
+without the precomputed f32 feature cache; it imports ``torch`` and
+``numpy``, never ``jax``.
 """
 
 from .api import DPMMModel, FitResult, fit
 from .config import DPMMConfig
-from .priors import GAUSSIAN, GaussianFamily
-from .utils.generators import generate_gaussian_data
+from .priors import GAUSSIAN, MULTINOMIAL, GaussianFamily, MultinomialFamily
+from .utils.generators import generate_gaussian_data, generate_mnmm_data
 from .utils.metrics import get_labels_histogram, nmi, varinfo
 
 __all__ = [
@@ -20,8 +21,11 @@ __all__ = [
     "FitResult",
     "GAUSSIAN",
     "GaussianFamily",
+    "MULTINOMIAL",
+    "MultinomialFamily",
     "fit",
     "generate_gaussian_data",
+    "generate_mnmm_data",
     "get_labels_histogram",
     "nmi",
     "varinfo",

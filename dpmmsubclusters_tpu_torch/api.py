@@ -1,12 +1,12 @@
 """Public API: ``fit`` and the fitted model.
 
-PyTorch counterpart of :mod:`dpmmsubclusters_tpu.api` for the Gaussian
-family on one device: the same ``fit`` signature and config fields, the same
-centering and standardization with the prior mapped along, and a
-``DPMMModel`` with ``labels``, ``k``, ``weights``, ``counts``, ``predict``
-and ``log_posterior``.  ``fit`` runs on ``device="cuda"`` by default and
-raises when no card is present; pass ``device="cpu"`` for the plain PyTorch
-path.
+PyTorch counterpart of :mod:`dpmmsubclusters_tpu.api` for the Gaussian and
+multinomial families on one device: the same ``fit`` signature and config
+fields, the same centering and standardization of Gaussian data with the
+prior mapped along, and a ``DPMMModel`` with ``labels``, ``k``, ``weights``,
+``counts``, ``predict`` and ``log_posterior``.  ``fit`` runs on
+``device="cuda"`` by default and raises when no card is present; pass
+``device="cpu"`` for the plain PyTorch path.
 """
 from __future__ import annotations
 
@@ -17,28 +17,25 @@ import numpy as np
 import torch
 
 from .config import DPMMConfig
-from .priors import GAUSSIAN
+from .priors import GAUSSIAN, MULTINOMIAL
 from .sampler.driver import (DPMMEngine, IterStats, desired_tier, run_loop,
                              tier_sequence)
 from .sampler.table import log_posterior as _table_log_posterior
 
 _NOT_PORTED = "see ROADMAP.md for the slices of the port still to come"
+_FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
 
 
 def _resolve_precompute(fam, cfg: DPMMConfig, n: int, d: int) -> DPMMConfig:
-    """Resolve ``precompute_features`` (None = auto: on when the unpadded
-    [N, F] f32 cache fits ``feature_cache_bytes``).  The port runs only on
-    the cache: the in-kernel feature build (kernel A's "gaussian" variant)
-    is not ported yet."""
+    """Resolve ``precompute_features`` (None = auto: on for Gaussian data
+    when the unpadded [N, F] f32 cache fits ``feature_cache_bytes``).  An
+    explicit True builds the cache for either family; without it the
+    kernels build the feature rows from the raw points."""
     pf = cfg.precompute_features
     if pf is None:
-        pf = n * fam.feature_dim(d) * 4 <= cfg.feature_cache_bytes
-    if not pf:
-        raise NotImplementedError(
-            "precompute_features resolved False: the in-kernel feature build "
-            f"(kernel A's 'gaussian' variant) is not ported yet; "
-            f"{_NOT_PORTED}")
-    return cfg.replace(precompute_features=True)
+        pf = (fam.name == "gaussian"
+              and n * fam.feature_dim(d) * 4 <= cfg.feature_cache_bytes)
+    return cfg.replace(precompute_features=bool(pf))
 
 
 def _tier_setup(cfg: DPMMConfig):
@@ -57,27 +54,46 @@ def _tier_setup(cfg: DPMMConfig):
     return min(desired_tier(init_active, tiers[0], tiers), ceiling), tiers
 
 
+_PRIOR_SHAPES = {
+    "gaussian": lambda d: {"kappa": (), "m": (d,), "nu": (), "psi": (d, d)},
+    "multinomial": lambda d: {"alpha": (d,)},
+}
+
+
 def _validate_prior(fam, prior: dict, d: int, name: str = "prior") -> dict:
-    """Check a user prior's keys and shapes against the data dimension and
-    convert it to float32 tensors."""
-    want = ("kappa", "m", "nu", "psi")
-    if set(prior) != set(want):
+    """Check a user prior's keys and shapes against the family and the data
+    dimension and convert it to float32 tensors."""
+    shapes = _PRIOR_SHAPES[fam.name](d)
+    if set(prior) != set(shapes):
         raise ValueError(
             f"{name} for the {fam.name} family must have exactly the keys "
-            f"{list(want)}; got {sorted(prior)}")
+            f"{list(shapes)}; got {sorted(prior)}")
     out = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in
            prior.items()}
-    shapes = {"kappa": (), "m": (d,), "nu": (), "psi": (d, d)}
     for k, shape in shapes.items():
         if tuple(out[k].shape) != shape:
             raise ValueError(f"{name}[{k!r}] must have shape {shape} for "
                              f"D={d} data; got {tuple(out[k].shape)}")
+    if fam.name != "gaussian":
+        return out
     if not float(out["kappa"]) > 0:
         raise ValueError(f"{name}['kappa'] must be > 0")
     if not float(out["nu"]) > d - 1:
         raise ValueError(f"{name}['nu'] must be > D-1={d - 1} for a proper "
                          f"NIW prior; got {float(out['nu'])}")
     return out
+
+
+def _resolve_family(family, prior):
+    """A family name, a family object, or None: the multinomial family for a
+    prior with ``alpha``, else the Gaussian."""
+    if family is None:
+        if prior is not None and "alpha" in prior:
+            return MULTINOMIAL
+        return GAUSSIAN
+    if isinstance(family, str):
+        return _FAMILIES[family]
+    return family
 
 
 def _resolve_device(device) -> torch.device:
@@ -210,16 +226,13 @@ def fit(
 ) -> FitResult:
     """Fit a DPMM with the sub-cluster split/merge sampler.
 
-    ``data`` is [N, D] (``transposed=True`` accepts D x N); ``prior=None``
-    uses the weak default NIW(1, 0, D+3, I) stated in data space.  Any
+    ``data`` is [N, D] (``transposed=True`` accepts D x N).  ``family`` is
+    "gaussian" (the default) or "multinomial" (also chosen by a prior with
+    ``alpha``); ``prior=None`` uses the family's weak default, for the
+    Gaussian NIW(1, 0, D+3, I) stated in data space.  Any
     :class:`DPMMConfig` field can be passed as a keyword override.  Runs on
-    ``device`` ("cuda" by default); the Gaussian family only.
+    ``device`` ("cuda" by default).
     """
-    if family not in (None, "gaussian", GAUSSIAN) or (
-            prior is not None and "alpha" in prior):
-        raise NotImplementedError(
-            f"family={family!r}: only the Gaussian family is ported; "
-            f"{_NOT_PORTED}")
     x = _prepare_data(data, transposed)
     n, d = x.shape
     cfg = config if config is not None else DPMMConfig()
@@ -236,26 +249,27 @@ def fit(
             f"enable_saving: checkpoints are not ported yet; {_NOT_PORTED}")
     dev = _resolve_device(device)
 
-    fam = GAUSSIAN
+    fam = _resolve_family(family, prior)
     prior = (fam.default_prior(d) if prior is None
              else _validate_prior(fam, prior, d))
     if outlier_prior is not None:
         outlier_prior = _validate_prior(fam, outlier_prior, d,
                                         name="outlier_prior")
 
-    # centering keeps the f32 sum_xx accurate; per-dim standardization
-    # keeps the posterior scatter well-conditioned (DPMMConfig.
-    # standardize_data).  Both are exact model transforms: the prior, stated
-    # in data space, is mapped along and results are mapped back.
+    # Gaussian data only: centering keeps the f32 sum_xx accurate; per-dim
+    # standardization keeps the posterior scatter well-conditioned
+    # (DPMMConfig.standardize_data).  Both are exact model transforms: the
+    # prior, stated in data space, is mapped along and results are mapped
+    # back.  Counts are left as they are.
     shift = np.zeros(d, np.float32)
     scale = np.ones(d, np.float32)
-    if cfg.center_data:
+    if fam.name == "gaussian" and cfg.center_data:
         shift = x.mean(axis=0)
         x = x - shift
         prior = fam.shift_prior(prior, -shift)
         if outlier_prior is not None:
             outlier_prior = fam.shift_prior(outlier_prior, -shift)
-    if cfg.standardize_data:
+    if fam.name == "gaussian" and cfg.standardize_data:
         sd = x.std(axis=0)
         scale = np.where(sd > 1e-12, 1.0 / sd, 1.0).astype(np.float32)
         x = x * scale
@@ -267,7 +281,8 @@ def fit(
     k_start, tiers = _tier_setup(cfg)
     engine = DPMMEngine(fam, cfg.replace(k_max=int(k_start)), dev)
     points, valid, n_total = engine.shard_points(x)
-    points = engine.featurize(points)
+    if cfg.precompute_features:
+        points = engine.featurize(points)
     seed = (cfg.seed if cfg.seed is not None
             else int(np.random.randint(0, 2**31 - 1)))
     gen = torch.Generator(device=dev).manual_seed(seed)

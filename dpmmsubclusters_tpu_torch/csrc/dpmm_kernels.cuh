@@ -1,11 +1,14 @@
-// Shared pieces of the sweep kernels: the counter-based Gumbel hash and the
-// statistics launcher that both C entry points use.
+// Shared pieces of the sweep kernels: the counter-based Gumbel hash, the two
+// sources of feature rows, and the statistics launcher that both C entry
+// points use.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC (no --use_fast_math: the hash's float steps and
-//        logf must round exactly as the plain versions do).
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC,
+//        one object per .cu, linked -shared (no --use_fast_math: the hash's
+//        float steps and logf must round exactly as the plain versions do,
+//        and denormals must survive the built rows' products).
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -41,11 +44,58 @@ __device__ __forceinline__ float gumbel(uint32_t s, uint32_t ctr) {
   return -logf(-logf(u));
 }
 
-// [LEFT K | RIGHT K] x F statistics of ``feat`` rows by (label, sub, valid)
-// into ``stats``; ``partial`` is [ceil(n / kStatsChunk), 2K, F] scratch.
-cudaError_t launch_stats(const float* feat, const int32_t* labels,
-                         const int32_t* sub, const uint8_t* valid, int n,
-                         int f, int k, float* partial, float* stats,
-                         cudaStream_t stream);
+// Where a kernel's feature rows come from, chosen at compile time.  A row
+// source names a column once (``col``) and then reads that column of any
+// point (``at``).
+//
+// CacheRows, the "precomputed" variant: rows of the f32 feature cache
+// [N, F] = [1, x, triu(x x^T)].
+struct CacheRows {
+  const float* feat;
+  int f;
+  struct Col {
+    int c;
+  };
+  __device__ __forceinline__ Col col(int c) const { return {c}; }
+  __device__ __forceinline__ float at(Col c, int p) const {
+    return feat[static_cast<size_t>(p) * f + c.c];
+  }
+};
+
+// BuiltRows, the "gaussian" and "multinomial" variants: rows built from the
+// raw points x [N, D].  Column c is X[a] * X[b] with X = [1, x_0 .. x_{D-1}]
+// and pairs[c] = a << 16 | b.  The Gaussian map is (0, 0), (i+1, 0) for
+// i < D, then (i+1, j+1) over the upper triangle in row-major order, i.e.
+// the rows [1, x, triu(x x^T)] of GaussianFamily.features; the multinomial
+// map stops after x: [1, x].  The product is __fmul_rn, which nvcc never
+// contracts into a following add, so a built value is bit for bit the
+// cache's fl(x_i * x_j) (and 1 * x == x), and a built row feeds the same
+// FMA chain as a cached one.
+struct BuiltRows {
+  const float* x;
+  const int32_t* pairs;
+  int d;
+  struct Col {
+    int a, b;
+  };
+  __device__ __forceinline__ Col col(int c) const {
+    const int32_t ab = pairs[c];
+    return {ab >> 16, ab & 0xffff};
+  }
+  __device__ __forceinline__ float at(Col c, int p) const {
+    const float* row = x + static_cast<size_t>(p) * d;
+    const float xa = c.a ? row[c.a - 1] : 1.0f;
+    const float xb = c.b ? row[c.b - 1] : 1.0f;
+    return __fmul_rn(xa, xb);
+  }
+};
+
+// [LEFT K | RIGHT K] x F statistics of the rows by (label, sub, valid) into
+// ``stats``; ``partial`` is [ceil(n / kStatsChunk), 2K, F] scratch.
+// Instantiated for CacheRows and BuiltRows in stats_from_labels.cu.
+template <class Rows>
+cudaError_t launch_stats(Rows rows, const int32_t* labels, const int32_t* sub,
+                         const uint8_t* valid, int n, int f, int k,
+                         float* partial, float* stats, cudaStream_t stream);
 
 }  // namespace dpmm

@@ -1,14 +1,19 @@
 // Kernel A: the per-sweep assignment + statistics pass.
 //
 // Replaces dpmmsubclusters_tpu/ops/pallas_sweep.py:518 fused_assign (kernel
-// body _kernel, :264-385), "precomputed" variant.  Per point (a row of the
-// f32 feature cache [N, F]):
+// body _kernel, :264-385) in its "precomputed", "gaussian" and "multinomial"
+// variants.  Per point, with feat its feature row:
 //   ll    = feat @ phi                 phi [F, 2K]: [whole K | delta K]
 //   label = argmax_j (ll_j + log_w_j + G_j)   NaN -> -inf, first max wins,
 //           G_j zeroed in hard mode
 //   side  = [ll_{K+label} + (G_r - G_l) + 1e-30 > 0]    (always sampled)
 // then the [LEFT K | RIGHT K] x F statistics of the new labels, masked by
 // ``valid`` (launch_stats, shared with kernel B and launched back to back).
+// The feature rows come from a compile-time source (dpmm_kernels.cuh): the
+// f32 cache [N, F] ("precomputed"), or rows built here from the raw points
+// x [N, D] ("gaussian": [1, x, triu(x x^T)]; "multinomial": [1, x]).  The
+// TPU kernel's selector matmul with bf16 planes exists only to make Mosaic
+// build the Gaussian rows exactly; here a column is one rounded product.
 // The Gumbel noise is the TPU kernel's counter hash, bit for bit: per hash
 // tile of ``tile`` rows the seed is fmix32(seed + (tile_off + row / tile) *
 // 0x9E3779B9) and the counter is (row % tile) * K + j (labels) or
@@ -16,24 +21,34 @@
 // ``tile`` belongs to the hash only; the CUDA block size is independent.
 //
 // What bounds it on the H100: the ll product is F * 2K * 2 flop per point
-// for 4F bytes read -- 128 flop/byte at K=128, so it is compute-bound in
-// exact float32 (no tensor cores: 67 TFLOP/s peak, about 4.5 ms per sweep
-// at 1M x 32-d).  The statistics pass is memory-bound (see
-// stats_from_labels.cu).
+// for at most 4F bytes read -- 128 flop/byte at K=128 from the cache, and
+// 2 * 2145 * 512 flop for 256 bytes of x at D=64 and K=256 -- so it is
+// compute-bound in exact float32 (no tensor cores: 67 TFLOP/s peak).  A
+// built row costs one multiply per feature per block, not per column.  The
+// statistics pass is cheaper (see stats_from_labels.cu).
 //
 // Design (right and simple first; no wgmma or TMA yet): a block of 8 warps
-// owns 64 points and all 2K columns.  Each warp owns 8 points and each lane
-// the columns lane + 32c, so a warp holds whole rows of ll in registers:
-// the Gumbel argmax is a warp shuffle reduction and the sub-label's delta
-// column is one shuffle away -- ll never touches device memory.  The
-// product is a register-blocked SGEMM over 16-deep slices of F staged in
-// shared memory by asynchronous copies (cp.async, two stages, so the next
-// slice loads while this one is multiplied); feature values are
-// warp-broadcast reads, phi reads are conflict-free across lanes.  Each
-// block rereads phi (574 KB at K=128) from L2.
+// owns 64 points.  Each warp owns 8 points and each lane the columns
+// lane + 32c, so a warp holds whole rows of ll in registers: the Gumbel
+// argmax is a warp shuffle reduction and ll never touches device memory.
+// The product is a register-blocked SGEMM over 16-deep slices of F staged in
+// shared memory, two stages so the next slice loads while this one is
+// multiplied: phi slices and cache rows by asynchronous copies (cp.async);
+// built rows are read from x (L1 hits: a block's 64 points are 16 KB at
+// D=64) into registers before the multiply and stored after it.  Feature
+// values are warp-broadcast reads, phi reads are conflict-free across lanes.
+// Up to 2K = 256 columns (K <= 128) one pass covers [whole | delta] and the
+// delta column K + label is one shuffle away.  Above, for any K, the whole
+// columns go in passes of 256 with a running Gumbel argmax (the noise of
+// column j depends only on j, and later passes win only a strictly larger
+// value, so the first max still wins); then each point's one delta column
+// is an F-long dot with the row label of ``delta_t`` [K, F] (phi's delta
+// columns, transposed by the wrapper so the read is coalesced), split over
+// the lanes and summed by a butterfly.
 #include "dpmm_kernels.cuh"
 
 #include <cmath>
+#include <type_traits>
 
 namespace dpmm {
 namespace {
@@ -44,67 +59,14 @@ constexpr int kBlockPoints = kWarps * kPointsPerWarp;  // 64
 constexpr int kDepth = 16;                             // F slice per stage
 constexpr int kThreads = kWarps * 32;
 constexpr int kAPad = 4;  // keeps the float4 reads aligned, spreads banks
+constexpr int kRowsPerThread = kBlockPoints * kDepth / kThreads;  // 4
+constexpr int kWideCPT = 8;  // columns per lane of one pass: 256 per warp
 
-// Draws the label and sub-label of row ``g`` from its ll row, spread over
-// the warp's lanes (column lane + 32c in ll[c]).  Called by all 32 lanes.
 template <int CPT>
-__device__ __forceinline__ void sample_row(const float (&ll)[CPT], int g,
-                                           uint32_t seed, int tile_off,
-                                           int tile, int k, int lane,
-                                           float noise,
-                                           const float* __restrict__ log_w,
-                                           int32_t* __restrict__ labels,
-                                           int32_t* __restrict__ sub) {
-  const uint32_t s = tile_seed(
-      seed, static_cast<uint32_t>(tile_off) + static_cast<uint32_t>(g / tile));
-  const uint32_t rit = static_cast<uint32_t>(g % tile);
-
-  // lane-local Gumbel argmax over this lane's whole columns
-  float best_v = -INFINITY;
-  int best_j = 0x7fffffff;
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    const int j = lane + 32 * c;
-    if (j < k) {
-      float logit = ll[c] + log_w[j];
-      if (isnan(logit)) logit = -INFINITY;
-      const float v =
-          logit + gumbel(s, rit * static_cast<uint32_t>(k) +
-                                static_cast<uint32_t>(j)) * noise;
-      if (v > best_v || (v == best_v && j < best_j)) {
-        best_v = v;
-        best_j = j;
-      }
-    }
-  }
-  // warp argmax; ties keep the smaller column (jnp.argmax's first max)
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, best_v, off);
-    const int oj = __shfl_xor_sync(0xffffffffu, best_j, off);
-    if (ov > best_v || (ov == best_v && oj < best_j)) {
-      best_v = ov;
-      best_j = oj;
-    }
-  }
-  const int label = best_j;
-
-  // the delta column K + label lives on lane (K + label) % 32, slot c
-  const int jd = k + label;
-  const int cd = jd / 32;
-  float mine = 0.0f;
-#pragma unroll
-  for (int c = 0; c < CPT; ++c)
-    if (c == cd) mine = ll[c];
-  const float delta = __shfl_sync(0xffffffffu, mine, jd % 32);
-  const uint32_t s2 = s ^ 0xA5A5A5A5u;
-  const float g_l = gumbel(s2, rit * 2u);
-  const float g_r = gumbel(s2, rit * 2u + 1u);
-  if (lane == 0) {
-    labels[g] = label;
-    sub[g] = (delta + (g_r - g_l) + 1e-30f > 0.0f) ? 1 : 0;
-  }
-}
+struct Stage {
+  float a[2][kDepth][kBlockPoints + kAPad];  // rows, transposed
+  float b[2][kDepth][32 * CPT];              // phi columns
+};
 
 // 4-byte asynchronous global -> shared copy; ``ok`` false zero-fills (the
 // source is then not read).
@@ -116,131 +78,334 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
-template <int CPT>  // columns per lane: 2K <= 32 * CPT
-__global__ void __launch_bounds__(kThreads)
-assign_kernel(const float* __restrict__ feat, const float* __restrict__ phi,
-              const float* __restrict__ log_w,
-              const int32_t* __restrict__ seed_ptr, int tile_off, int hard,
-              int tile, int n, int f, int k, int32_t* __restrict__ labels,
-              int32_t* __restrict__ sub) {
-  constexpr int kCols = 32 * CPT;
-  // two stages: the copies of slice t+1 fly while slice t is multiplied
-  __shared__ __align__(16) float a_s[2][kDepth][kBlockPoints + kAPad];
-  __shared__ float b_s[2][kDepth][kCols];
+__device__ __forceinline__ bool better(float v, int j, float bv, int bj) {
+  return v > bv || (v == bv && j < bj);
+}
 
+// acc[r][c] = row(row0 + 8 warp + r) . phi[:, col0 + lane + 32 c] for the
+// phi columns col0 + [0, ncols) (leading dimension ldp); other columns and
+// rows past n give 0.  Every thread of the block calls it.
+template <int CPT, class Rows>
+__device__ __forceinline__ void row_products(
+    const Rows& rows, const float* __restrict__ phi, int ldp, int col0,
+    int ncols, int row0, int n, int f, Stage<CPT>& sm,
+    float (&acc)[kPointsPerWarp][CPT]) {
+  constexpr int kCols = 32 * CPT;
+  constexpr bool kCache = std::is_same<Rows, CacheRows>::value;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kBlockPoints;
-  const int two_k = 2 * k;
+  const int kk = tid % kDepth;
+  float built[kRowsPerThread];  // built rows of the next slice, in flight
 
-  // stage feat[row0:row0+64, k0:k0+16] (transposed) and phi[k0:k0+16, :],
-  // zero-filled past the edges
-  auto load_slice = [&](int stage, int k0) {
-    const int kk = tid % kDepth;
-    const int fc = k0 + kk;
-#pragma unroll
-    for (int i = 0; i < kBlockPoints * kDepth / kThreads; ++i) {
-      const int r = tid / kDepth + i * (kThreads / kDepth);
-      const int g = row0 + r;
-      const bool ok = g < n && fc < f;
-      cp_async4(&a_s[stage][kk][r],
-                ok ? feat + static_cast<size_t>(g) * f + fc : feat, ok);
-    }
+  auto load_phi = [&](int stage, int k0) {
 #pragma unroll
     for (int idx = tid; idx < kDepth * kCols; idx += kThreads) {
       const int kr = idx / kCols;
       const int c = idx % kCols;
       const int fr = k0 + kr;
-      const bool ok = fr < f && c < two_k;
-      cp_async4(&b_s[stage][kr][c],
-                ok ? phi + static_cast<size_t>(fr) * two_k + c : phi, ok);
+      const bool ok = fr < f && c < ncols;
+      cp_async4(&sm.b[stage][kr][c],
+                ok ? phi + static_cast<size_t>(fr) * ldp + col0 + c : phi,
+                ok);
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // rows [row0, row0 + 64) x features [k0, k0 + 16): cache rows copy
+  // straight into the stage; built rows are computed into ``built`` and
+  // stored by store_built once the stage is free
+  auto load_rows = [&](int stage, int k0) {
+    const int fc = k0 + kk;
+    if constexpr (kCache) {
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        const int r = tid / kDepth + i * (kThreads / kDepth);
+        const int g = row0 + r;
+        const bool ok = g < n && fc < f;
+        cp_async4(&sm.a[stage][kk][r],
+                  ok ? rows.feat + static_cast<size_t>(g) * f + fc
+                     : rows.feat,
+                  ok);
+      }
+    } else {
+      const typename Rows::Col c = rows.col(fc < f ? fc : 0);
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        const int g = row0 + tid / kDepth + i * (kThreads / kDepth);
+        built[i] = (g < n && fc < f) ? rows.at(c, g) : 0.0f;
+      }
+    }
+  };
+  auto store_built = [&](int stage) {
+    if constexpr (!kCache) {
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+        sm.a[stage][kk][tid / kDepth + i * (kThreads / kDepth)] = built[i];
+    }
   };
 
-  float acc[kPointsPerWarp][CPT];
 #pragma unroll
   for (int r = 0; r < kPointsPerWarp; ++r)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[r][c] = 0.0f;
 
   const int slices = (f + kDepth - 1) / kDepth;
-  load_slice(0, 0);
+  __syncthreads();  // an earlier pass may still read the stages
+  load_phi(0, 0);
+  load_rows(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  store_built(0);
   for (int t = 0; t < slices; ++t) {
     const int cur = t & 1;
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();  // slice t is visible; everyone is done with slice t-1
-    if (t + 1 < slices) load_slice(cur ^ 1, (t + 1) * kDepth);
+    const bool next = t + 1 < slices;
+    if (next) {
+      load_phi(cur ^ 1, (t + 1) * kDepth);
+      load_rows(cur ^ 1, (t + 1) * kDepth);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
 #pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
+    for (int k2 = 0; k2 < kDepth; ++k2) {
       const float4 a0 = *reinterpret_cast<const float4*>(
-          &a_s[cur][kk][warp * kPointsPerWarp]);
+          &sm.a[cur][k2][warp * kPointsPerWarp]);
       const float4 a1 = *reinterpret_cast<const float4*>(
-          &a_s[cur][kk][warp * kPointsPerWarp + 4]);
+          &sm.a[cur][k2][warp * kPointsPerWarp + 4]);
       const float a[kPointsPerWarp] = {a0.x, a0.y, a0.z, a0.w,
                                        a1.x, a1.y, a1.z, a1.w};
       float b[CPT];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) b[c] = b_s[cur][kk][lane + 32 * c];
+      for (int c = 0; c < CPT; ++c) b[c] = sm.b[cur][k2][lane + 32 * c];
 #pragma unroll
       for (int r = 0; r < kPointsPerWarp; ++r)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
     }
+    if (next) store_built(cur ^ 1);
   }
+}
+
+// Folds this lane's whole columns j = j0 + lane + 32 c < k of one row into
+// the running Gumbel argmax (bv, bj), then takes the warp's argmax, so every
+// lane returns the same (bv, bj).  Ties keep the smaller column.
+template <int CPT>
+__device__ __forceinline__ void gumbel_argmax(const float (&ll)[CPT], int j0,
+                                              int k, uint32_t s, uint32_t rit,
+                                              float noise,
+                                              const float* __restrict__ log_w,
+                                              int lane, float& bv, int& bj) {
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int j = j0 + lane + 32 * c;
+    if (j < k) {
+      float logit = ll[c] + log_w[j];
+      if (isnan(logit)) logit = -INFINITY;
+      const float v =
+          logit + gumbel(s, rit * static_cast<uint32_t>(k) +
+                                static_cast<uint32_t>(j)) * noise;
+      if (better(v, j, bv, bj)) {
+        bv = v;
+        bj = j;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+    const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
+    if (better(ov, oj, bv, bj)) {
+      bv = ov;
+      bj = oj;
+    }
+  }
+}
+
+// Writes row g's label and its sub-label, drawn from the label's delta
+// logit (lane 0 writes).
+__device__ __forceinline__ void write_row(int g, int label, float delta,
+                                          uint32_t s, uint32_t rit, int lane,
+                                          int32_t* __restrict__ labels,
+                                          int32_t* __restrict__ sub) {
+  const uint32_t s2 = s ^ 0xA5A5A5A5u;
+  const float g_l = gumbel(s2, rit * 2u);
+  const float g_r = gumbel(s2, rit * 2u + 1u);
+  if (lane == 0) {
+    labels[g] = label;
+    sub[g] = (delta + (g_r - g_l) + 1e-30f > 0.0f) ? 1 : 0;
+  }
+}
+
+// K <= 128: one pass over all 2K columns [whole | delta].
+template <int CPT, class Rows>  // columns per lane: 2K <= 32 * CPT
+__global__ void __launch_bounds__(kThreads)
+assign_kernel(Rows rows, const float* __restrict__ phi,
+              const float* __restrict__ log_w,
+              const int32_t* __restrict__ seed_ptr, int tile_off, int hard,
+              int tile, int n, int f, int k, int32_t* __restrict__ labels,
+              int32_t* __restrict__ sub) {
+  __shared__ __align__(16) Stage<CPT> sm;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * kBlockPoints;
+
+  float acc[kPointsPerWarp][CPT];
+  row_products<CPT>(rows, phi, 2 * k, 0, 2 * k, row0, n, f, sm, acc);
 
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
   const float noise = hard ? 0.0f : 1.0f;
 #pragma unroll
   for (int r = 0; r < kPointsPerWarp; ++r) {
     const int g = row0 + warp * kPointsPerWarp + r;
-    if (g < n) sample_row<CPT>(acc[r], g, seed, tile_off, tile, k, lane,
-                               noise, log_w, labels, sub);
+    if (g >= n) continue;  // uniform across the warp
+    const uint32_t s = tile_seed(
+        seed, static_cast<uint32_t>(tile_off) + static_cast<uint32_t>(g / tile));
+    const uint32_t rit = static_cast<uint32_t>(g % tile);
+    float bv = -INFINITY;
+    int bj = 0x7fffffff;
+    gumbel_argmax<CPT>(acc[r], 0, k, s, rit, noise, log_w, lane, bv, bj);
+    // the delta column K + label lives on lane (K + label) % 32, slot c
+    const int jd = k + bj;
+    const int cd = jd / 32;
+    float mine = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      if (c == cd) mine = acc[r][c];
+    const float delta = __shfl_sync(0xffffffffu, mine, jd % 32);
+    write_row(g, bj, delta, s, rit, lane, labels, sub);
   }
 }
 
-template <int CPT>
-cudaError_t launch_assign(const float* feat, const float* phi,
+// Any K: the whole columns in passes of 256, then one delta dot per point.
+// Two blocks per SM: the running argmax (16 registers a thread) pushed the
+// kernel to 154 registers and one block (8 warps) per SM, 25% slower
+// (76 -> 57 ms at 1M x 64-d, K=256 on an H100).
+template <class Rows>
+__global__ void __launch_bounds__(kThreads, 2)
+assign_wide_kernel(Rows rows, const float* __restrict__ phi,
+                   const float* __restrict__ delta_t,
+                   const float* __restrict__ log_w,
+                   const int32_t* __restrict__ seed_ptr, int tile_off,
+                   int hard, int tile, int n, int f, int k,
+                   int32_t* __restrict__ labels, int32_t* __restrict__ sub) {
+  constexpr int CPT = kWideCPT;
+  __shared__ __align__(16) Stage<CPT> sm;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * kBlockPoints;
+  const int wrow0 = row0 + warp * kPointsPerWarp;
+
+  const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
+  const float noise = hard ? 0.0f : 1.0f;
+  // row g's hash seed, recomputed where needed rather than held
+  auto seed_of = [&](int g) {
+    return tile_seed(seed, static_cast<uint32_t>(tile_off) +
+                               static_cast<uint32_t>(g / tile));
+  };
+  float bv[kPointsPerWarp];
+  int bj[kPointsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kPointsPerWarp; ++r) {
+    bv[r] = -INFINITY;
+    bj[r] = 0x7fffffff;
+  }
+
+  float acc[kPointsPerWarp][CPT];
+  for (int j0 = 0; j0 < k; j0 += 32 * CPT) {
+    row_products<CPT>(rows, phi, 2 * k, j0, min(32 * CPT, k - j0), row0, n,
+                      f, sm, acc);
+#pragma unroll
+    for (int r = 0; r < kPointsPerWarp; ++r)
+      gumbel_argmax<CPT>(acc[r], j0, k, seed_of(wrow0 + r),
+                         static_cast<uint32_t>((wrow0 + r) % tile), noise,
+                         log_w, lane, bv[r], bj[r]);
+  }
+
+  // delta_{label} = row . delta_t[label, :], lane l taking f = l + 32 t
+  float dot[kPointsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kPointsPerWarp; ++r) dot[r] = 0.0f;
+  for (int fc = lane; fc < f; fc += 32) {
+    const typename Rows::Col c = rows.col(fc);
+#pragma unroll
+    for (int r = 0; r < kPointsPerWarp; ++r) {
+      const int g = wrow0 + r;
+      if (g < n)
+        dot[r] = fmaf(rows.at(c, g),
+                      delta_t[static_cast<size_t>(bj[r]) * f + fc], dot[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kPointsPerWarp; ++r) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], off);
+    const int g = wrow0 + r;
+    if (g < n)
+      write_row(g, bj[r], dot[r], seed_of(g),
+                static_cast<uint32_t>(g % tile), lane, labels, sub);
+  }
+}
+
+template <class Rows>
+cudaError_t launch_assign(Rows rows, const float* phi, const float* delta_t,
                           const float* log_w, const int32_t* seed,
                           int tile_off, int hard, int tile, int n, int f,
                           int k, int32_t* labels, int32_t* sub,
-                          cudaStream_t stream) {
+                          cudaStream_t st) {
   const int blocks = (n + kBlockPoints - 1) / kBlockPoints;
-  assign_kernel<CPT><<<blocks, kThreads, 0, stream>>>(
-      feat, phi, log_w, seed, tile_off, hard, tile, n, f, k, labels, sub);
+  const int two_k = 2 * k;
+#define DPMM_ASSIGN(CPT)                                                    \
+  assign_kernel<CPT, Rows><<<blocks, kThreads, 0, st>>>(                    \
+      rows, phi, log_w, seed, tile_off, hard, tile, n, f, k, labels, sub)
+  if (two_k <= 32) {
+    DPMM_ASSIGN(1);
+  } else if (two_k <= 64) {
+    DPMM_ASSIGN(2);
+  } else if (two_k <= 128) {
+    DPMM_ASSIGN(4);
+  } else if (two_k <= 256) {
+    DPMM_ASSIGN(8);
+  } else {
+    assign_wide_kernel<Rows><<<blocks, kThreads, 0, st>>>(
+        rows, phi, delta_t, log_w, seed, tile_off, hard, tile, n, f, k,
+        labels, sub);
+  }
+#undef DPMM_ASSIGN
   return cudaGetLastError();
+}
+
+template <class Rows>
+int assign_and_stats(Rows rows, const uint8_t* valid, const float* phi,
+                     const float* delta_t, const float* log_w,
+                     const int32_t* seed, int tile_off, int hard, int tile,
+                     int n, int f, int k, int32_t* labels, int32_t* sub,
+                     float* partial, float* stats, cudaStream_t st) {
+  cudaError_t err = launch_assign(rows, phi, delta_t, log_w, seed, tile_off,
+                                  hard, tile, n, f, k, labels, sub, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_stats(rows, labels, sub, valid, n, f, k, partial, stats, st));
 }
 
 }  // namespace
 }  // namespace dpmm
 
-extern "C" int dpmm_fused_assign(const float* feat, const uint8_t* valid,
-                                 const float* phi, const float* log_w,
-                                 const int32_t* seed, int tile_off, int hard,
-                                 int tile, int n, int f, int k,
-                                 int32_t* labels, int32_t* sub,
+// rows: the cache [n, f] when ``pairs`` is null, else the raw points [n, d]
+// with the column map pairs [f] (dpmm_kernels.cuh, BuiltRows).  delta_t
+// [k, f] (phi's delta columns, transposed) is read only when k > 128.
+extern "C" int dpmm_fused_assign(const float* rows, const int32_t* pairs,
+                                 int d, const uint8_t* valid,
+                                 const float* phi, const float* delta_t,
+                                 const float* log_w, const int32_t* seed,
+                                 int tile_off, int hard, int tile, int n,
+                                 int f, int k, int32_t* labels, int32_t* sub,
                                  float* partial, float* stats, void* stream) {
   using namespace dpmm;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  const int two_k = 2 * k;
-  if (two_k <= 32) {
-    err = launch_assign<1>(feat, phi, log_w, seed, tile_off, hard, tile, n, f,
-                           k, labels, sub, st);
-  } else if (two_k <= 64) {
-    err = launch_assign<2>(feat, phi, log_w, seed, tile_off, hard, tile, n, f,
-                           k, labels, sub, st);
-  } else if (two_k <= 128) {
-    err = launch_assign<4>(feat, phi, log_w, seed, tile_off, hard, tile, n, f,
-                           k, labels, sub, st);
-  } else if (two_k <= 256) {
-    err = launch_assign<8>(feat, phi, log_w, seed, tile_off, hard, tile, n, f,
-                           k, labels, sub, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_stats(feat, labels, sub, valid, n, f, k, partial, stats, st));
+  if (pairs != nullptr)
+    return assign_and_stats(BuiltRows{rows, pairs, d}, valid, phi, delta_t,
+                            log_w, seed, tile_off, hard, tile, n, f, k,
+                            labels, sub, partial, stats, st);
+  return assign_and_stats(CacheRows{rows, f}, valid, phi, delta_t, log_w, seed,
+                          tile_off, hard, tile, n, f, k, labels, sub, partial,
+                          stats, st);
 }

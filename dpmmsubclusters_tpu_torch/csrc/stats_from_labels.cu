@@ -1,15 +1,20 @@
 // Kernel B: per-(slot, side) sufficient statistics from given labels.
 //
 // Replaces dpmmsubclusters_tpu/ops/pallas_sweep.py:439 stats_from_labels
-// (kernel body _stats_kernel, :388-431), "precomputed" variant: the input
-// rows are the f32 feature cache [N, F] = [1, x, triu(x x^T)], and the
-// output is [LEFT K | RIGHT K] x F in float32, rows masked by ``valid``.
+// (kernel body _stats_kernel, :388-431) in its "precomputed", "gaussian" and
+// "multinomial" variants.  The output is [LEFT K | RIGHT K] x F in float32,
+// rows masked by ``valid``.  The rows come from a compile-time source
+// (dpmm_kernels.cuh): the f32 feature cache [N, F] ("precomputed"), or rows
+// built here from the raw points x [N, D] ("gaussian": [1, x, triu(x x^T)],
+// F = 1 + D + D(D+1)/2; "multinomial": [1, x], F = 1 + D).
 //
 // What bounds it on the H100: on the TPU this was a one-hot MXU matmul
-// ([2K, T] @ [T, F]); here it is a scatter of feature rows, N * F adds for
-// N * F * 4 bytes read -- memory-bound (2.2 GB per pass at 1M x 32-d, about
-// 0.7 ms at 3.35 TB/s).  The dense one-hot product would spend 2K times the
-// flops for the same answer.
+// ([2K, T] @ [T, F]); here it is a scatter of feature rows, N * F adds.
+// From the cache it is memory-bound: N * F * 4 bytes (2.2 GB per pass at
+// 1M x 32-d, about 0.7 ms at 3.35 TB/s).  Built from x it reads only the
+// points (256 B per point at D=64 against the cache row's 8.6 KB) and the
+// walk over the keys bounds it.  The dense one-hot product would spend 2K
+// times the flops for the same answer.
 //
 // Design: a block owns one chunk of kStatsChunk points, 128 feature columns
 // and 32 of the 2K (side, slot) keys.  Each thread owns one column and keeps
@@ -17,13 +22,24 @@
 // (bank-conflict-free, no syncs, no atomics), adding the chunk's points of
 // its keys in order.  A warp reads 32 points' keys at once (coalesced) and
 // walks only the points of its key group (ballot + find-first-set), so the
-// points of other groups cost a fraction of an instruction each.  Every
-// point's row is read by exactly one key group, and the small 16 KB slab
-// lets about a dozen blocks share an SM to hide the read latency.
+// points of other groups cost a fraction of an instruction each; cache rows
+// are read 4 points at a time so that 4 reads are in flight.  Every point's
+// row is read by exactly one key group, and the small 16 KB slab lets about
+// a dozen blocks share an SM to hide the read latency.  A built column looks
+// its (a, b) pair up once and then reads x[p, a-1] and x[p, b-1] of each of
+// its points: the 128 threads of a block read the same x row, so those are
+// L1 hits, and the scan of the keys (every column block of a chunk reads
+// all its keys: 17 x 16 scans of each key at D=64, K=256) bounds the
+// kernel.
 // Each block writes its [32, 128] partial; a second kernel sums the partials
 // in chunk order.  The result is deterministic: the same inputs give the
-// same bits every run.
+// same bits every run, and a built row adds exactly the cached row's values
+// in the same order, so the variants agree bit for bit on the same points.
+// The scratch is n_chunks x 2K x F floats: 611 x 512 x 2145 x 4 B = 2.7 GB
+// at 10M x 64-d and K=256, beside the 2.6 GB of x.
 #include "dpmm_kernels.cuh"
+
+#include <type_traits>
 
 namespace dpmm {
 namespace {
@@ -31,18 +47,24 @@ namespace {
 constexpr int kStatsCols = 128;  // threads (= feature columns) per block
 constexpr int kStatsKeys = 32;   // (side, slot) keys per block
 
+template <class Rows>
 __global__ void __launch_bounds__(kStatsCols)
-stats_partial_kernel(const float* __restrict__ feat,
-                     const int32_t* __restrict__ labels,
+stats_partial_kernel(Rows rows, const int32_t* __restrict__ labels,
                      const int32_t* __restrict__ sub,
                      const uint8_t* __restrict__ valid, int n, int f, int k,
                      float* __restrict__ partial) {
+  // points of the key group read at once: cache rows come from device
+  // memory, so 4 reads in flight beat 1; built rows read x from L1 and the
+  // scan of the keys bounds them, where the batching only adds work
+  constexpr int kWalk = std::is_same<Rows, CacheRows>::value ? 4 : 1;
   __shared__ float acc[kStatsKeys][kStatsCols];
   const int tid = threadIdx.x;
   const int col = blockIdx.y * kStatsCols + tid;
-  const int rows = 2 * k;
+  const bool live = col < f;
+  const typename Rows::Col c = rows.col(live ? col : 0);
+  const int n_keys = 2 * k;
   const int key0 = blockIdx.z * kStatsKeys;
-  const int nkeys = min(kStatsKeys, rows - key0);
+  const int nkeys = min(kStatsKeys, n_keys - key0);
   for (int r = 0; r < kStatsKeys; ++r) acc[r][tid] = 0.0f;
 
   const int chunk = blockIdx.x;
@@ -63,15 +85,28 @@ stats_partial_kernel(const float* __restrict__ feat,
         r = static_cast<unsigned>(s * k + l - key0);
     }
     unsigned mine = __ballot_sync(0xffffffffu, r < static_cast<unsigned>(nkeys));
+    // kWalk points at a time: their reads are issued together, then added
+    // in point order (the same sums, bit for bit, as one at a time)
     while (mine) {
-      const int j = __ffs(mine) - 1;
-      mine &= mine - 1;
-      const unsigned rj = __shfl_sync(0xffffffffu, r, j);
-      if (col < f) acc[rj][tid] += feat[static_cast<size_t>(base + j) * f + col];
+      int j[kWalk];
+      unsigned rj[kWalk];
+      float v[kWalk];
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u) {
+        j[u] = mine ? __ffs(mine) - 1 : -1;  // warp-uniform
+        mine &= mine - 1;
+        rj[u] = __shfl_sync(0xffffffffu, r, j[u] < 0 ? 0 : j[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u)
+        v[u] = (live && j[u] >= 0) ? rows.at(c, base + j[u]) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u)
+        if (live && j[u] >= 0) acc[rj[u]][tid] += v[u];
     }
   }
-  if (col >= f) return;
-  float* out = partial + (static_cast<size_t>(chunk) * rows + key0) * f + col;
+  if (!live) return;
+  float* out = partial + (static_cast<size_t>(chunk) * n_keys + key0) * f + col;
   for (int r = 0; r < nkeys; ++r) out[static_cast<size_t>(r) * f] = acc[r][tid];
 }
 
@@ -87,15 +122,15 @@ __global__ void stats_reduce_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
-cudaError_t launch_stats(const float* feat, const int32_t* labels,
-                         const int32_t* sub, const uint8_t* valid, int n,
-                         int f, int k, float* partial, float* stats,
-                         cudaStream_t stream) {
+template <class Rows>
+cudaError_t launch_stats(Rows rows, const int32_t* labels, const int32_t* sub,
+                         const uint8_t* valid, int n, int f, int k,
+                         float* partial, float* stats, cudaStream_t stream) {
   const int n_chunks = (n + kStatsChunk - 1) / kStatsChunk;
   const dim3 grid(n_chunks, (f + kStatsCols - 1) / kStatsCols,
                   (2 * k + kStatsKeys - 1) / kStatsKeys);
-  stats_partial_kernel<<<grid, kStatsCols, 0, stream>>>(
-      feat, labels, sub, valid, n, f, k, partial);
+  stats_partial_kernel<Rows><<<grid, kStatsCols, 0, stream>>>(
+      rows, labels, sub, valid, n, f, k, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int m = 2 * k * f;
@@ -104,15 +139,32 @@ cudaError_t launch_stats(const float* feat, const int32_t* labels,
   return cudaGetLastError();
 }
 
+template cudaError_t launch_stats<CacheRows>(CacheRows, const int32_t*,
+                                             const int32_t*, const uint8_t*,
+                                             int, int, int, float*, float*,
+                                             cudaStream_t);
+template cudaError_t launch_stats<BuiltRows>(BuiltRows, const int32_t*,
+                                             const int32_t*, const uint8_t*,
+                                             int, int, int, float*, float*,
+                                             cudaStream_t);
+
 }  // namespace dpmm
 
-extern "C" int dpmm_stats_from_labels(const float* feat, const int32_t* labels,
+// rows: the cache [n, f] when ``pairs`` is null, else the raw points [n, d]
+// with the column map pairs [f] (dpmm_kernels.cuh, BuiltRows).
+extern "C" int dpmm_stats_from_labels(const float* rows, const int32_t* pairs,
+                                      int d, const int32_t* labels,
                                       const int32_t* sub, const uint8_t* valid,
                                       int n, int f, int k, float* partial,
                                       float* stats, void* stream) {
-  return static_cast<int>(dpmm::launch_stats(
-      feat, labels, sub, valid, n, f, k, partial, stats,
-      static_cast<cudaStream_t>(stream)));
+  using namespace dpmm;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pairs != nullptr)
+    return static_cast<int>(launch_stats(BuiltRows{rows, pairs, d}, labels,
+                                         sub, valid, n, f, k, partial, stats,
+                                         st));
+  return static_cast<int>(launch_stats(CacheRows{rows, f}, labels, sub, valid,
+                                       n, f, k, partial, stats, st));
 }
 
 extern "C" int dpmm_stats_chunk() { return dpmm::kStatsChunk; }

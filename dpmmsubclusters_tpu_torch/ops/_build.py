@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-The sources are compiled at first use by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library's name carries
+The sources are compiled at first use by ``nvcc``, one process per source
+side by side, and linked into one shared library with a plain C interface,
+loaded with ``ctypes``.  The library's name carries
 a hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is reused.  Output goes to ``dpmmsubclusters_tpu_torch/_build/``
 (listed in ``.gitignore``).
@@ -22,18 +23,20 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # feat, valid, phi, log_w, seed, tile_off, hard, tile, n, f, k,
-    # labels, sub, partial, stats, stream
-    "dpmm_fused_assign": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P],
-    # feat, labels, sub, valid, n, f, k, partial, stats, stream
-    "dpmm_stats_from_labels": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # rows, pairs, d, valid, phi, delta_t, log_w, seed, tile_off, hard,
+    # tile, n, f, k, labels, sub, partial, stats, stream
+    "dpmm_fused_assign": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _P, _P, _P, _P, _P],
+    # rows, pairs, d, labels, sub, valid, n, f, k, partial, stats, stream
+    "dpmm_stats_from_labels": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                               _P],
     "dpmm_stats_chunk": [],
     "dpmm_error_string": [_I],
 }
@@ -58,7 +61,7 @@ def build(verbose: bool = False) -> pathlib.Path:
     """Compile ``csrc/*.cu`` into ``_build/`` if needed; returns the path of
     the shared library.  Raises ``RuntimeError`` with the compiler's output
     when nvcc fails."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -67,26 +70,33 @@ def build(verbose: bool = False) -> pathlib.Path:
         return lib
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # build under a temporary name, then rename: a concurrent or interrupted
-    # build never leaves a partial library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # build in a temporary directory, then rename: a concurrent or
+    # interrupted build never leaves a partial library under the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # one nvcc per source, all at once, then one link
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+              for obj, src in zip(objs, srcs)], verbose)
+        so = os.path.join(tmp, lib.name)
+        _run([[nvcc, *LINK_FLAGS, "-o", so, *objs]], verbose)
+        os.replace(so, lib)
     return lib
+
+
+def _run(cmds, verbose: bool) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+        if verbose:
+            print(out, flush=True)
 
 
 @functools.lru_cache(maxsize=None)

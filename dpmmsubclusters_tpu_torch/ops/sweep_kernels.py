@@ -8,10 +8,17 @@
   the same statistics from given labels.  Replaces
   ``dpmmsubclusters_tpu.ops.pallas_sweep.stats_from_labels``.
 
-Both take the f32 feature cache ``[N, F]`` (rows ``[1, x, triu(x x^T)]``)
-and flat ``int32 [N]`` label streams.  The tensor's device picks the path:
-a CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
-version.  Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Both take flat ``int32 [N]`` label streams and, as the JAX functions do, a
+``family_name`` that says what the rows ``x`` are:
+
+* ``"precomputed"``: the f32 feature cache ``[N, F]`` itself;
+* ``"gaussian"``: raw points ``[N, D]``, feature rows ``[1, x, triu(x x^T)]``
+  (F = 1 + D + D(D+1)/2) built inside the kernel;
+* ``"multinomial"``: raw counts ``[N, D]``, feature rows ``[1, x]``.
+
+The tensor's device picks the path: a CUDA tensor launches the kernel (or
+raises), a CPU tensor runs the plain version.  Each wrapper counts its
+kernel launches per variant in ``<wrapper>.launches``.
 
 The Gumbel noise is the TPU kernel's counter hash, reproduced bit for bit
 (:func:`gumbel_noise`), so fed the same integer seed, ``tile_off`` and hash
@@ -19,13 +26,20 @@ tile size ``tile``, every implementation draws the same noise.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..priors.dirichlet import MULTINOMIAL
+from ..priors.niw import GAUSSIAN
 from . import _build
 
 _MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 _SUB_SALT = 0xA5A5A5A5
+
+VARIANTS = ("precomputed", "gaussian", "multinomial")
+_FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
 
 
 # ---- the counter hash, uint32 emulated in int64 -----------------------------
@@ -70,37 +84,75 @@ def gumbel_noise(s: torch.Tensor, rows_in_tile: torch.Tensor, width: int):
     return -torch.log(-torch.log(u))
 
 
+# ---- feature rows ------------------------------------------------------------
+def feature_dim(family_name: str, d: int) -> int:
+    """F of the rows a variant contracts (``d`` = the width of ``x``)."""
+    if family_name == "precomputed":
+        return d
+    return _FAMILIES[family_name].feature_dim(d)
+
+
+@functools.lru_cache(maxsize=None)
+def feature_pairs(family_name: str, d: int, device) -> torch.Tensor:
+    """The kernels' column map of a built variant, int32 [F]: column c is
+    X[a] * X[b] with X = [1, x_0 .. x_{D-1}] and entry c = a << 16 | b, so
+    the rows are ``family.features(x)``: (0, 0), (i+1, 0) for i < D, then,
+    for the Gaussian, (i+1, j+1) over triu(x x^T) in row-major order."""
+    pairs = [(0, 0)] + [(i + 1, 0) for i in range(d)]
+    if family_name == "gaussian":
+        pairs += [(i + 1, j + 1) for i in range(d) for j in range(i, d)]
+    elif family_name != "multinomial":
+        raise ValueError(f"no built rows for family_name={family_name!r}")
+    return torch.tensor([a << 16 | b for a, b in pairs], dtype=torch.int32,
+                        device=device)
+
+
+def feature_rows(x, family_name: str) -> torch.Tensor:
+    """The float32 feature rows of ``x`` under a variant (the family's
+    ``features``; the cache's rows are themselves)."""
+    x = x.to(torch.float32)
+    if family_name == "precomputed":
+        return x
+    return _FAMILIES[family_name].features(x)
+
+
 # ---- plain versions ----------------------------------------------------------
 _PLAIN_ROWS = 1 << 16  # rows per step of the plain versions (bounds memory)
 
 
-def stats_from_labels_reference(feat, labels, sub, valid, k: int):
+def stats_from_labels_reference(x, labels, sub, valid, k: int,
+                                family_name: str = "precomputed"):
     """Plain version of kernel B: ``[LEFT K | RIGHT K] x F`` float32 sums of
-    the valid rows of ``feat`` by (sub, label)."""
-    f = feat.shape[1]
-    out = torch.zeros((2 * k, f), dtype=torch.float32, device=feat.device)
-    v = valid.bool()
-    rows = (sub.long() * k + labels.long())[v]
-    out.index_add_(0, rows, feat[v].to(torch.float32))
+    the valid feature rows of ``x`` by (sub, label)."""
+    n = x.shape[0]
+    f = feature_dim(family_name, x.shape[1])
+    out = torch.zeros((2 * k, f), dtype=torch.float32, device=x.device)
+    key = sub.long() * k + labels.long()
+    for p0 in range(0, n, _PLAIN_ROWS):
+        p1 = min(n, p0 + _PLAIN_ROWS)
+        v = valid[p0:p1].bool()
+        out.index_add_(0, key[p0:p1][v],
+                       feature_rows(x[p0:p1], family_name)[v])
     return out
 
 
-def fused_assign_reference(feat, valid, phi_mat, log_w, seed, tile_off=0,
-                           hard=False, *, tile: int = 512):
+def fused_assign_reference(x, valid, phi_mat, log_w, seed, tile_off=0,
+                           hard=False, *, tile: int = 512,
+                           family_name: str = "precomputed"):
     """Plain version of kernel A.  Returns ``(labels int32 [N], sub int32
     [N], stats float32 [2K, F] rows [LEFT | RIGHT])``."""
-    n = feat.shape[0]
+    n = x.shape[0]
     k = log_w.shape[0]
     seed = int(seed)
-    labels = torch.empty(n, dtype=torch.int32, device=feat.device)
-    sub = torch.empty(n, dtype=torch.int32, device=feat.device)
+    labels = torch.empty(n, dtype=torch.int32, device=x.device)
+    sub = torch.empty(n, dtype=torch.int32, device=x.device)
     noise = 0.0 if hard else 1.0
     for p0 in range(0, n, _PLAIN_ROWS):
         p1 = min(n, p0 + _PLAIN_ROWS)
-        ll = feat[p0:p1] @ phi_mat                          # [R, 2K]
+        ll = feature_rows(x[p0:p1], family_name) @ phi_mat      # [R, 2K]
         logits = ll[:, :k] + log_w[None, :]
         logits = torch.where(torch.isnan(logits), float("-inf"), logits)
-        rows = torch.arange(p0, p1, dtype=torch.int64, device=feat.device)
+        rows = torch.arange(p0, p1, dtype=torch.int64, device=x.device)
         s = tile_seeds(seed, rows, tile, tile_off)
         rit = rows % tile
         lab = torch.argmax(logits + gumbel_noise(s, rit, k) * noise, dim=-1)
@@ -109,7 +161,8 @@ def fused_assign_reference(feat, valid, phi_mat, log_w, seed, tile_off=0,
         side = delta + (g2[:, 1] - g2[:, 0]) + 1e-30 > 0.0
         labels[p0:p1] = lab.to(torch.int32)
         sub[p0:p1] = side.to(torch.int32)
-    return labels, sub, stats_from_labels_reference(feat, labels, sub, valid, k)
+    stats = stats_from_labels_reference(x, labels, sub, valid, k, family_name)
+    return labels, sub, stats
 
 
 # ---- wrappers ----------------------------------------------------------------
@@ -131,7 +184,16 @@ def _check_cuda(name: str, **tensors):
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-MAX_K = 128  # the assignment kernel holds a row's 2K <= 256 columns in a warp
+def _rows_arg(x, family_name: str):
+    """(pairs tensor or None, d, F) for a variant's rows ``x``."""
+    if family_name not in VARIANTS:
+        raise ValueError(f"family_name must be one of {VARIANTS}; "
+                         f"got {family_name!r}")
+    d = x.shape[1]
+    f = feature_dim(family_name, d)
+    if family_name == "precomputed":
+        return None, d, f
+    return feature_pairs(family_name, d, x.device), d, f
 
 
 def _stats_scratch(n: int, k: int, f: int, device) -> torch.Tensor:
@@ -141,42 +203,49 @@ def _stats_scratch(n: int, k: int, f: int, device) -> torch.Tensor:
                        device=device)
 
 
-def stats_from_labels(feat, labels, sub, valid, k: int):
-    """``[LEFT K | RIGHT K] x F`` float32 statistics of ``feat [N, F]`` by
-    flat ``labels``/``sub`` ``int32 [N]``, rows masked by ``valid bool [N]``.
-    Deterministic on the card (fixed-order partial sums)."""
-    if feat.device.type == "cpu":
-        return stats_from_labels_reference(feat, labels, sub, valid, k)
-    n, f = feat.shape
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def stats_from_labels(x, labels, sub, valid, k: int,
+                      family_name: str = "precomputed"):
+    """``[LEFT K | RIGHT K] x F`` float32 statistics of the feature rows of
+    ``x`` (see the module note on ``family_name``) by flat ``labels``/``sub``
+    ``int32 [N]``, rows masked by ``valid bool [N]``.  Deterministic on the
+    card (fixed-order partial sums)."""
+    if x.device.type == "cpu":
+        return stats_from_labels_reference(x, labels, sub, valid, k,
+                                           family_name)
+    n = x.shape[0]
+    pairs, d, f = _rows_arg(x, family_name)
     _check_cuda("stats_from_labels",
-                feat=(feat, torch.float32, (n, f)),
+                x=(x, torch.float32, (n, d)),
                 labels=(labels, torch.int32, (n,)),
                 sub=(sub, torch.int32, (n,)),
                 valid=(valid, torch.bool, (n,)))
-    stats = torch.empty((2 * k, f), dtype=torch.float32, device=feat.device)
-    partial = _stats_scratch(n, k, f, feat.device)
+    stats = torch.empty((2 * k, f), dtype=torch.float32, device=x.device)
+    partial = _stats_scratch(n, k, f, x.device)
     lib = _build.load()
     rc = lib.dpmm_stats_from_labels(
-        feat.data_ptr(), labels.data_ptr(), sub.data_ptr(), valid.data_ptr(),
-        n, f, k, partial.data_ptr(), stats.data_ptr(),
-        torch.cuda.current_stream(feat.device).cuda_stream,
+        x.data_ptr(), _ptr(pairs), d, labels.data_ptr(), sub.data_ptr(),
+        valid.data_ptr(), n, f, k, partial.data_ptr(), stats.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "stats_from_labels")
-    stats_from_labels.launches += 1
+    stats_from_labels.launches[family_name] += 1
     return stats
 
 
-stats_from_labels.launches = 0
-
-
-def fused_assign(feat, valid, phi_mat, log_w, seed, tile_off: int = 0,
-                 hard: bool = False, *, tile: int = 512):
+def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
+                 hard: bool = False, *, tile: int = 512,
+                 family_name: str = "precomputed"):
     """One sweep's assignment + statistics pass.
 
-    feat    [N, F] float32 feature cache
+    x       [N, F] float32 feature cache ("precomputed") or [N, D] raw
+            points ("gaussian", "multinomial"; rows built in the kernel)
     valid   bool [N]; invalid rows get labels but add no statistics
     phi_mat [F, 2K] float32, columns [whole K | delta K] (assign._delta_phi)
-    log_w   [K] float32 mixture log-weights (-inf inactive)
+    log_w   [K] float32 mixture log-weights (-inf inactive); any K
     seed    int, or an int32 [1] tensor on the card (read by the kernel, so
             the sweep needs no host sync to draw it)
     hard    zero the label noise (sub-labels are always sampled)
@@ -186,39 +255,47 @@ def fused_assign(feat, valid, phi_mat, log_w, seed, tile_off: int = 0,
     with stats rows ``[LEFT K | RIGHT K]``.  The ll product is exact float32
     whatever ``ll_precision`` the config names.
     """
-    if feat.device.type == "cpu":
+    if x.device.type == "cpu":
         if torch.is_tensor(seed):
             seed = int(seed.reshape(-1)[0])
-        return fused_assign_reference(feat, valid, phi_mat, log_w, seed,
-                                      tile_off, hard, tile=tile)
-    n, f = feat.shape
+        return fused_assign_reference(x, valid, phi_mat, log_w, seed,
+                                      tile_off, hard, tile=tile,
+                                      family_name=family_name)
+    n = x.shape[0]
     k = log_w.shape[0]
-    if k > MAX_K:
-        raise ValueError(f"fused_assign: K={k} exceeds the kernel's "
-                         f"MAX_K={MAX_K}")
+    pairs, d, f = _rows_arg(x, family_name)
     if not torch.is_tensor(seed):
-        seed = torch.tensor([int(seed)], dtype=torch.int32, device=feat.device)
+        seed = torch.tensor([int(seed)], dtype=torch.int32, device=x.device)
     _check_cuda("fused_assign",
-                feat=(feat, torch.float32, (n, f)),
+                x=(x, torch.float32, (n, d)),
                 valid=(valid, torch.bool, (n,)),
                 phi_mat=(phi_mat, torch.float32, (f, 2 * k)),
                 log_w=(log_w, torch.float32, (k,)),
                 seed=(seed, torch.int32, (1,)))
-    labels = torch.empty(n, dtype=torch.int32, device=feat.device)
-    sub = torch.empty(n, dtype=torch.int32, device=feat.device)
-    stats = torch.empty((2 * k, f), dtype=torch.float32, device=feat.device)
-    partial = _stats_scratch(n, k, f, feat.device)
+    # above one pass of 256 columns (K > 128) the kernel dots each point's
+    # row with its label's delta column, read as a row of this [K, F] copy
+    delta_t = phi_mat[:, k:].T.contiguous()
+    labels = torch.empty(n, dtype=torch.int32, device=x.device)
+    sub = torch.empty(n, dtype=torch.int32, device=x.device)
+    stats = torch.empty((2 * k, f), dtype=torch.float32, device=x.device)
+    partial = _stats_scratch(n, k, f, x.device)
     lib = _build.load()
     rc = lib.dpmm_fused_assign(
-        feat.data_ptr(), valid.data_ptr(), phi_mat.data_ptr(),
-        log_w.data_ptr(), seed.data_ptr(), int(tile_off), int(bool(hard)),
-        int(tile), n, f, k, labels.data_ptr(), sub.data_ptr(),
-        partial.data_ptr(), stats.data_ptr(),
-        torch.cuda.current_stream(feat.device).cuda_stream,
+        x.data_ptr(), _ptr(pairs), d, valid.data_ptr(), phi_mat.data_ptr(),
+        delta_t.data_ptr(), log_w.data_ptr(), seed.data_ptr(), int(tile_off),
+        int(bool(hard)), int(tile), n, f, k, labels.data_ptr(),
+        sub.data_ptr(), partial.data_ptr(), stats.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "fused_assign")
-    fused_assign.launches += 1
+    fused_assign.launches[family_name] += 1
     return labels, sub, stats
 
 
-fused_assign.launches = 0
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    for fn in (fused_assign, stats_from_labels):
+        fn.launches = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launches()

@@ -17,7 +17,7 @@ Params = Any  # dict of tensors
 
 
 class Family(Protocol):
-    """Protocol implemented by :mod:`.niw`."""
+    """Protocol implemented by :mod:`.niw` and :mod:`.dirichlet`."""
 
     name: str
 

@@ -24,7 +24,8 @@ from . import assign as assign_mod
 from . import moves as moves_mod
 from .smart import smart_sublabels
 from .sweep import make_smart_pass, make_sweep
-from .table import active_count, compute_posteriors, init_table, retier
+from .table import (active_count, compute_posteriors, data_dim, init_table,
+                    retier)
 
 
 def tier_sequence(k_max: int) -> list:
@@ -88,6 +89,7 @@ class DPMMEngine:
         self.family = family
         self.cfg = cfg
         self.device = torch.device(device)
+        self._x_is_features = bool(cfg.precompute_features)
         self._sweep = make_sweep(family, cfg)
         self._smart_on = cfg.resolved_smart_splits(family.name)
         self._smart = make_smart_pass(family, cfg) if self._smart_on else None
@@ -103,14 +105,18 @@ class DPMMEngine:
         return points, valid, float(points.shape[0])
 
     def featurize(self, points: torch.Tensor) -> torch.Tensor:
-        """The f32 feature cache [N, F] = [1, x, triu(x x^T)], built once per
-        fit; every kernel streams its rows (F is not padded)."""
+        """The f32 feature cache [N, F] (for the Gaussian family
+        [1, x, triu(x x^T)]), built once per fit when
+        ``cfg.precompute_features``; every kernel then streams its rows (F is
+        not padded).  Without it the kernels build the rows from the raw
+        points."""
         return self.family.features(points)
 
     # -- state --------------------------------------------------------------
     def _stats(self, points, valid, labels, sublabels, k: int):
-        return assign_mod.lr_to_full(
-            assign_mod.stats_only(points, valid, labels, sublabels, k))
+        return assign_mod.lr_to_full(assign_mod.stats_only(
+            points, valid, labels, sublabels, k, family=self.family,
+            x_is_features=self._x_is_features))
 
     def init_state(self, gen: torch.Generator, points, valid, prior,
                    outlier_prior=None,
@@ -121,7 +127,7 @@ class DPMMEngine:
         src/dp-parallel-sampling.jl:36-78)."""
         cfg, family = self.cfg, self.family
         n = points.shape[0]
-        d = prior["m"].shape[-1]
+        d = data_dim(prior)
         offset = 1 if cfg.outlier_mod > 0 else 0
         labels = torch.randint(offset, offset + cfg.init_clusters, (n,),
                                generator=gen, device=self.device,
@@ -137,8 +143,9 @@ class DPMMEngine:
             stats = family.stats_from_flat(flat3, d)
             stats_w = {name: a[:, 0] for name, a in stats.items()}
             sublabels = smart_sublabels(
-                assign_mod.raw_points(points, d), valid, labels, sublabels,
-                stats_w, stats_w["n"] > 0, cfg.max_split_iter)
+                assign_mod.raw_points(points, d, self._x_is_features), valid,
+                labels, sublabels, stats_w, stats_w["n"] > 0,
+                cfg.max_split_iter)
             flat3 = self._stats(points, valid, labels, sublabels, cfg.k_max)
 
         prior = {k: v.to(self.device) for k, v in prior.items()}

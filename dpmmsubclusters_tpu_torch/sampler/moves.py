@@ -19,7 +19,7 @@ import math
 import torch
 
 from ..ops.linalg import sample_dirichlet
-from .table import compute_posteriors, side_tile
+from .table import compute_posteriors, data_dim, side_tile
 
 NEG_INF = float("-inf")
 
@@ -154,7 +154,7 @@ def reset_bad(table, family):
     half = flat[:, 0:1] * 0.5
     flat = torch.where(bad[:, None, None],
                        torch.cat([flat[:, 0:1], half, half], dim=1), flat)
-    stats = family.stats_from_flat(flat, table["prior"]["m"].shape[-1])
+    stats = family.stats_from_flat(flat, data_dim(table["prior"]))
     table = {**table, "stats": stats, "hist": hist, "splittable": splittable}
     return compute_posteriors(family, table), bad.any(), bad
 
@@ -303,7 +303,7 @@ def merge_move(gen, table, labels, sublabels, alpha: float, final: bool,
     if lm_w is None:
         lm_w = family.log_marginal(table["prior"], post_w, stats_w, eligible)
     lm_w = torch.where(eligible, lm_w, 0.0)
-    dim = table["prior"]["m"].shape[-1]
+    dim = data_dim(table["prior"])
 
     if candidates is not None and candidates < (k * (k - 1)) // 2:
         pair_ok = _merge_pairs_screened(gen, table, family, eligible, lm_w,

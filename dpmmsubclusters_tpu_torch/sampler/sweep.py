@@ -23,18 +23,21 @@ import torch
 from . import assign as assign_mod
 from . import moves
 from . import smart as smart_mod
-from .table import active_count, compute_posteriors, log_posterior, side_tile
+from .table import (active_count, compute_posteriors, data_dim, log_posterior,
+                    side_tile)
 
 
 def _set_stats(family, table, flat3):
-    stats = family.stats_from_flat(flat3, table["prior"]["m"].shape[-1])
+    stats = family.stats_from_flat(flat3, data_dim(table["prior"]))
     return compute_posteriors(family, {**table, "stats": stats})
 
 
-def _stats_pass(family, table, points, valid, labels, sublabels):
+def _stats_pass(family, table, points, valid, labels, sublabels,
+                x_is_features: bool):
     """Table statistics recomputed from the given labels (kernel B)."""
     stats_lr = assign_mod.stats_only(points, valid, labels, sublabels,
-                                     table["active"].shape[0])
+                                     table["active"].shape[0], family=family,
+                                     x_is_features=x_is_features)
     return _set_stats(family, table, assign_mod.lr_to_full(stats_lr))
 
 
@@ -44,17 +47,19 @@ def make_smart_pass(family, cfg):
     marks.  Only newborn slots are (re)initialized, matching the reference's
     per-newborn ``smart_cluster_init!`` (src/local_clusters_actions.jl:
     374-378).  A no-op after one host sync when nothing is marked."""
+    x_is_features = bool(cfg.precompute_features)
 
     def smart_pass(table, labels, sublabels, points, valid):
         mask = table["needs_smart"] & table["active"] & ~table["is_outlier"]
         if not bool(mask.any()):
             return table, sublabels
-        d = table["prior"]["m"].shape[-1]
+        d = data_dim(table["prior"])
         stats_w = {name: a[:, 0] for name, a in table["stats"].items()}
         sub2 = smart_mod.smart_sublabels(
-            assign_mod.raw_points(points, d), valid, labels, sublabels,
-            stats_w, mask, cfg.max_split_iter)
-        table = _stats_pass(family, table, points, valid, labels, sub2)
+            assign_mod.raw_points(points, d, x_is_features), valid, labels,
+            sublabels, stats_w, mask, cfg.max_split_iter)
+        table = _stats_pass(family, table, points, valid, labels, sub2,
+                            x_is_features)
         return {**table, "needs_smart": table["needs_smart"] & ~mask}, sub2
 
     return smart_pass
@@ -72,6 +77,7 @@ def make_sweep(family, cfg):
     alpha = float(cfg.alpha)
     outlier_mod = float(cfg.outlier_mod)
     freeze_outlier = outlier_mod > 0 and not cfg.resample_outlier_params
+    x_is_features = bool(cfg.precompute_features)
 
     def redraw_and_recompute(gen, flag, slot_mask, table, labels, sublabels,
                              points, valid):
@@ -84,7 +90,8 @@ def make_sweep(family, cfg):
         fresh = torch.randint(0, 2, sublabels.shape, generator=gen,
                               device=sublabels.device, dtype=sublabels.dtype)
         sublabels = torch.where(slot_mask[labels.long()], fresh, sublabels)
-        return (_stats_pass(family, table, points, valid, labels, sublabels),
+        return (_stats_pass(family, table, points, valid, labels, sublabels,
+                            x_is_features),
                 sublabels)
 
     def sweep(table, labels, sublabels, gen, points, valid, n_total,
@@ -103,7 +110,8 @@ def make_sweep(family, cfg):
         labels, sublabels, stats_lr = assign_mod.assign_and_stats(
             points, valid, table["params"]["phi"], table["log_weights"],
             torch.log(torch.clamp(table["lr_weights"], min=1e-37)),
-            seed, bool(final or cfg.hard_clustering),
+            seed, bool(final or cfg.hard_clustering), family=family,
+            x_is_features=x_is_features,
         )
         table = _set_stats(family, table, assign_mod.lr_to_full(stats_lr))
 

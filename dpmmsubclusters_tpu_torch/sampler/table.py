@@ -30,6 +30,12 @@ def side_tile(prior_k):
             for k, v in prior_k.items()}
 
 
+def data_dim(prior) -> int:
+    """D from any family's (per-slot) prior: NIW ``m`` or Dirichlet
+    ``alpha``."""
+    return (prior["m"] if "m" in prior else prior["alpha"]).shape[-1]
+
+
 def compute_posteriors(family, table):
     """Recompute all posterior hyperparams from the current statistics
     (``update_splittable_cluster_params!``, for every slot and side)."""

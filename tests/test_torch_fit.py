@@ -1,6 +1,8 @@
-"""The port's main path end to end on the CPU: the 4-corner golden gate
-through ``fit(device="cpu")``, the log posterior of a JAX ``init_state``
-table carried over by ``interop``, and the entry points' refusals."""
+"""The port's fits end to end on the CPU: the 4-corner golden gate through
+``fit(device="cpu")`` with and without the feature cache, the multinomial
+family, table-capacity tiers past 128, the log posterior of a JAX
+``init_state`` table carried over by ``interop``, and the entry points'
+refusals."""
 import numpy as np
 import pytest
 
@@ -102,8 +104,128 @@ def test_fit_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tdpmm.fit(x, iters=1)
-    for kw in ({"family": "multinomial"},
-               {"feature_dtype": "bfloat16"},
-               {"precompute_features": False}):
+    for kw in ({"feature_dtype": "bfloat16"},
+               {"feature_dtype": "hybrid"},
+               {"enable_saving": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdpmm.fit(x, iters=1, device="cpu", **kw)
+
+
+class TestFourCornersWithoutCache(TestFourCorners):
+    """The golden gate with the feature rows built by the kernels' plain
+    versions from the raw points (``precompute_features=False``)."""
+
+    @pytest.fixture(scope="class")
+    def result(self):
+        x, gt = four_corners()
+        return (tdpmm.fit(x, alpha=100.0, iters=200, seed=12345,
+                          verbose=False, device="cpu",
+                          precompute_features=False), x, gt)
+
+
+def test_uncached_fit_equals_cached_fit():
+    """On the CPU the plain "gaussian" variant builds exactly the cache's
+    rows, so the two fits follow the same chain."""
+    x, _, _, _ = tdpmm.generate_gaussian_data(600, 3, 4, 50.0, seed=2)
+    kw = dict(alpha=10.0, iters=20, seed=4, verbose=False, device="cpu",
+              burnout=5)
+    cached = tdpmm.fit(x, precompute_features=True, **kw)
+    built = tdpmm.fit(x, precompute_features=False, **kw)
+    assert cached.model.cfg.precompute_features is True
+    assert built.model.cfg.precompute_features is False
+    np.testing.assert_array_equal(built.labels, cached.labels)
+    np.testing.assert_array_equal(built.model.sublabels,
+                                  cached.model.sublabels)
+
+
+def test_multinomial_fit():
+    """tests/test_fit_e2e.py::test_multinomial_fit on the port."""
+    x, gt, _ = tdpmm.generate_mnmm_data(2_000, 20, 3, 50, seed=1)
+    res = tdpmm.fit(x, alpha=1.0, prior={"alpha": np.ones(20, np.float32)},
+                    family="multinomial", iters=60, seed=3, verbose=False,
+                    device="cpu")
+    assert res.k > 1
+    assert tdpmm.nmi(gt, res.labels) > 0.5
+    assert res.model.family is tdpmm.MULTINOMIAL
+    assert res.model.cfg.precompute_features is False
+    np.testing.assert_array_equal(res.model.shift, 0.0)   # counts as given
+    pred, probs = res.predict(x)
+    assert probs.shape == (len(x), res.k)
+    assert (pred == res.labels).mean() > 0.95
+    assert np.isfinite(res.model.log_posterior())
+
+
+def test_log_posterior_of_jax_multinomial_init_state_matches():
+    """A JAX multinomial ``init_state`` table, carried over by
+    ``table_from_jax``, gives the same log posterior in both packages."""
+    x, _, _ = jdpmm.generate_mnmm_data(1_000, 12, 3, 40, seed=5)
+    cfg = jdpmm.DPMMConfig(k_max=16, init_clusters=3, burnout=5,
+                           verbose=False, precompute_features=False)
+    engine = DPMMEngine(jdpmm.MULTINOMIAL, cfg, make_data_mesh(1))
+    points, valid, n_total = engine.shard_points(x)
+    state = engine.init_state(jax.random.PRNGKey(3), points, valid,
+                              jdpmm.MULTINOMIAL.default_prior(12))
+    table_np = jax.tree.map(np.asarray, jax.device_get(state.table))
+    want = float(j_log_posterior(jdpmm.MULTINOMIAL, state.table, 1.0,
+                                 n_total))
+    got = float(t_log_posterior(tdpmm.MULTINOMIAL, table_from_jax(table_np),
+                                1.0, float(len(x))))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_entry_points_take_multinomial_and_uncached_fits():
+    from dpmmsubclusters_tpu_torch.api import (_resolve_family,
+                                               _resolve_precompute)
+
+    x, _ = four_corners(64)
+    counts = np.abs(x)
+    for data, kw in ((counts, {"family": "multinomial"}),
+                     (counts, {"family": tdpmm.MULTINOMIAL}),
+                     (counts, {"prior": {"alpha": np.ones(2)}}),
+                     (x, {"precompute_features": False})):
+        res = tdpmm.fit(data, iters=2, device="cpu", verbose=False, **kw)
+        assert res.k >= 1
+    assert _resolve_family(None, {"alpha": 1}) is tdpmm.MULTINOMIAL
+    assert _resolve_family("gaussian", None) is tdpmm.GAUSSIAN
+    cfg = tdpmm.DPMMConfig()
+    auto = {(fam.name, n, d): _resolve_precompute(fam, cfg, n, d)
+            .precompute_features
+            for fam in (tdpmm.GAUSSIAN, tdpmm.MULTINOMIAL)
+            for n, d in ((1_000_000, 32), (10_000_000, 64))}
+    assert auto == {("gaussian", 1_000_000, 32): True,
+                    ("gaussian", 10_000_000, 64): False,
+                    ("multinomial", 1_000_000, 32): False,
+                    ("multinomial", 10_000_000, 64): False}
+    on = cfg.replace(precompute_features=True)
+    assert _resolve_precompute(tdpmm.MULTINOMIAL, on, 10, 3) \
+        .precompute_features is True
+    with pytest.raises(ValueError, match="alpha"):
+        tdpmm.fit(x, prior={"alpha": np.ones(3)}, iters=1, device="cpu")
+    with pytest.raises(ValueError, match="smart_splits"):
+        tdpmm.fit(counts, family="multinomial", smart_splits=True,
+                  iters=1, device="cpu")
+
+
+def test_fit_migrates_past_tier_128(monkeypatch):
+    """With k_max=256 the table grows 16 -> 32 -> 128 -> 256 as K passes 32
+    (4K above the tier), and the fit runs on at width 256."""
+    from dpmmsubclusters_tpu_torch.sampler import driver
+
+    widths = []
+    migrate = driver.migrate
+
+    def spy(family, state, k_new):
+        widths.append(k_new)
+        return migrate(family, state, k_new)
+
+    monkeypatch.setattr(driver, "migrate", spy)
+    rng = np.random.default_rng(0)
+    means = rng.standard_normal((48, 8)).astype(np.float32) * 8.0
+    gt = rng.integers(0, 48, size=4800)
+    x = means[gt] + rng.standard_normal((4800, 8)).astype(np.float32)
+    res = tdpmm.fit(x, alpha=10.0, iters=64, seed=1, verbose=False,
+                    device="cpu", k_max=256, burnout=5)
+    assert widths[-1] == 256 and 128 in widths
+    assert res.model.table["active"].shape == (256,)
+    assert res.k > 32
+    assert tdpmm.nmi(gt, res.labels) > 0.95

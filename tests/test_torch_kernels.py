@@ -12,6 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from dpmmsubclusters_tpu.ops import pallas_sweep as ps  # noqa: E402
 from dpmmsubclusters_tpu.priors import GAUSSIAN as JG  # noqa: E402
+from dpmmsubclusters_tpu.priors import MULTINOMIAL as JM  # noqa: E402
 from dpmmsubclusters_tpu.sampler import assign as JA  # noqa: E402
 from dpmmsubclusters_tpu_torch.ops import _build  # noqa: E402
 from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk  # noqa: E402
@@ -23,24 +24,39 @@ STATS_RTOL, STATS_ATOL = 1e-4, 1e-3
 SOFT_AGREE = 0.995
 
 
-def _case(rng, n=1024, d=4, k=8):
-    x = rng.standard_normal((n, d)).astype(np.float32)
-    feat = np.asarray(JG.features(jnp.asarray(x)))
-    post = {
-        "kappa": jnp.full((k, 3), 5.0),
-        "m": jnp.asarray(rng.standard_normal((k, 3, d)).astype(np.float32)),
-        "nu": jnp.full((k, 3), d + 5.0),
-        "psi": jnp.broadcast_to(jnp.eye(d), (k, 3, d, d)).astype(jnp.float32),
-    }
-    phi = JG.sample_params(jax.random.PRNGKey(1), post,
-                           jnp.ones((k, 3), bool))["phi"]
+def _raw_case(rng, family="gaussian", n=1024, d=4, k=8):
+    """Raw points of a family, a [F, 2K] phi_mat drawn by the JAX family,
+    log-weights with one inactive slot, and valid."""
+    if family == "gaussian":
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        fam = JG
+        post = {
+            "kappa": jnp.full((k, 3), 5.0),
+            "m": jnp.asarray(rng.standard_normal((k, 3, d)).astype(np.float32)),
+            "nu": jnp.full((k, 3), d + 5.0),
+            "psi": jnp.broadcast_to(jnp.eye(d), (k, 3, d, d)).astype(
+                jnp.float32),
+        }
+    else:
+        x = rng.multinomial(30, rng.dirichlet(np.ones(d)), size=n).astype(
+            np.float32)
+        fam = JM
+        post = {"alpha": jnp.asarray(
+            rng.uniform(0.5, 3.0, size=(k, 3, d)).astype(np.float32))}
+    phi = fam.sample_params(jax.random.PRNGKey(1), post,
+                            jnp.ones((k, 3), bool))["phi"]
     lrw = rng.dirichlet([1.0, 1.0], size=k).astype(np.float32)
     phi_mat = np.asarray(JA._delta_phi(phi, jnp.log(jnp.asarray(lrw))))
     w = rng.dirichlet(np.ones(k)).astype(np.float32)
     log_w = np.log(w).astype(np.float32)
     log_w[k - 1] = -np.inf                    # an inactive slot
     valid = np.arange(n) < n - 24
-    return feat, phi_mat, log_w, valid
+    return x, phi_mat, log_w, valid
+
+
+def _case(rng, n=1024, d=4, k=8):
+    x, phi_mat, log_w, valid = _raw_case(rng, "gaussian", n, d, k)
+    return np.asarray(JG.features(jnp.asarray(x))), phi_mat, log_w, valid
 
 
 def _tt(*arrays):
@@ -130,7 +146,8 @@ def test_stats_from_labels_reference_matches_pallas_and_jnp(rng):
 def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
     feat, phi_mat, log_w, valid = _case(rng, n=256)
     args = _tt(feat, valid, phi_mat, log_w)
-    a0, b0 = sk.fused_assign.launches, sk.stats_from_labels.launches
+    a0 = dict(sk.fused_assign.launches)
+    b0 = dict(sk.stats_from_labels.launches)
     got = sk.fused_assign(*args, torch.tensor([42], dtype=torch.int32))
     want = sk.fused_assign_reference(*args, 42)
     for g, w in zip(got, want):
@@ -179,3 +196,179 @@ def test_cuda_kernels_match_plain_versions(rng):
         torch.testing.assert_close(
             sk.stats_from_labels(args[0], lk, sk_, args[1], 8), want,
             rtol=STATS_RTOL, atol=STATS_ATOL)
+
+
+# ---- the raw-point variants ("gaussian", "multinomial") and any K ----------
+_D = {"gaussian": 4, "multinomial": 8}
+
+
+@pytest.mark.parametrize("family,d", [("gaussian", 1), ("gaussian", 5),
+                                      ("multinomial", 7)])
+def test_feature_pairs_rebuild_family_rows_bit_for_bit(rng, family, d):
+    """The kernels' column map, applied as X[a] * X[b] with X = [1, x],
+    gives the port's feature rows bit for bit, subnormal products included,
+    and the JAX family's rows wherever XLA keeps them (it flushes
+    subnormals on the CPU)."""
+    from dpmmsubclusters_tpu_torch.priors import GAUSSIAN as TG
+    from dpmmsubclusters_tpu_torch.priors import MULTINOMIAL as TMN
+
+    pairs = sk.feature_pairs(family, d, torch.device("cpu")).long()
+    tfam, jfam = (TG, JG) if family == "gaussian" else (TMN, JM)
+    for decades in (25, 5):
+        x = (rng.standard_normal((64, d))
+             * 10.0 ** rng.uniform(-decades, decades, size=(64, d))).astype(
+                 np.float32)
+        big = torch.cat([torch.ones(64, 1), torch.from_numpy(x)], dim=1)
+        built = (big[:, pairs >> 16] * big[:, pairs & 0xFFFF]).numpy()
+        want = tfam.features(torch.from_numpy(x)).numpy()
+        assert built.shape == want.shape == (64, sk.feature_dim(family, d))
+        np.testing.assert_array_equal(built.view(np.uint32),
+                                      want.view(np.uint32))
+    want = np.asarray(jfam.features(jnp.asarray(x)))
+    np.testing.assert_array_equal(built.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("family,hard", [("gaussian", True),
+                                         ("gaussian", False),
+                                         ("multinomial", True),
+                                         ("multinomial", False)])
+def test_fused_assign_reference_built_rows_match_pallas(rng, family, hard):
+    x, phi_mat, log_w, valid = _raw_case(rng, family, d=_D[family])
+    seed, tile_off, tile = 987654, 3, 256
+    lj, sj, stj = ps.fused_assign(
+        seed, jnp.asarray(x), jnp.asarray(valid.reshape(-1, 128)),
+        jnp.asarray(phi_mat), jnp.asarray(log_w), int(hard),
+        k_slots=len(log_w), family_name=family, tile=tile, interpret=True,
+        ll_precision="highest", stats_precision="highest", tile_off=tile_off)
+    lt, st_, stt = sk.fused_assign_reference(
+        *_tt(x, valid, phi_mat, log_w), seed, tile_off, hard, tile=tile,
+        family_name=family)
+    lj, sj = np.asarray(lj).reshape(-1), np.asarray(sj).reshape(-1)
+    if hard:
+        np.testing.assert_array_equal(lt.numpy(), lj)
+    else:
+        assert (lt.numpy() == lj).mean() >= SOFT_AGREE
+        assert (st_.numpy() == sj).mean() >= SOFT_AGREE
+    np.testing.assert_allclose(stt.numpy(), np.asarray(stj),
+                               rtol=STATS_RTOL, atol=STATS_ATOL)
+    assert stt.shape == (2 * len(log_w), sk.feature_dim(family, x.shape[1]))
+
+
+@pytest.mark.parametrize("family", ["gaussian", "multinomial"])
+def test_stats_from_labels_reference_built_rows_match_pallas_and_jnp(
+        rng, family):
+    x, _, _, valid = _raw_case(rng, family, d=_D[family])
+    k = 8
+    labels = rng.integers(0, k, size=len(x)).astype(np.int32)
+    sub = rng.integers(0, 2, size=len(x)).astype(np.int32)
+    got = sk.stats_from_labels_reference(*_tt(x, labels, sub, valid), k,
+                                         family)
+    blk = [jnp.asarray(a.reshape(-1, 128)) for a in (labels, sub, valid)]
+    want = ps.stats_from_labels(jnp.asarray(x), *blk, k_slots=k,
+                                family_name=family, tile=256, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=STATS_RTOL, atol=STATS_ATOL)
+    jfam = JG if family == "gaussian" else JM
+    lr = np.asarray(JA.stats_only(jnp.asarray(x), blk[2], blk[0], blk[1], k,
+                                  jfam, 512, x_is_features=False))
+    np.testing.assert_allclose(
+        got.numpy(), np.concatenate([lr[:, 0], lr[:, 1]]),
+        rtol=STATS_RTOL, atol=STATS_ATOL)
+
+
+def test_plain_gaussian_rows_equal_plain_cache_rows(rng, monkeypatch):
+    """The plain "gaussian" variant on x equals the plain "precomputed" one
+    on GaussianFamily.features(x), chunk loop included."""
+    from dpmmsubclusters_tpu_torch.priors import GAUSSIAN as TG
+
+    monkeypatch.setattr(sk, "_PLAIN_ROWS", 256)
+    x, phi_mat, log_w, valid = _raw_case(rng, "gaussian", n=700)
+    x, valid, phi_mat, log_w = _tt(x, valid, phi_mat, log_w)
+    feat = TG.features(x)
+    for hard in (True, False):
+        built = sk.fused_assign_reference(x, valid, phi_mat, log_w, 11, 1,
+                                          hard, family_name="gaussian")
+        cache = sk.fused_assign_reference(feat, valid, phi_mat, log_w, 11, 1,
+                                          hard)
+        for b, c in zip(built, cache):
+            assert torch.equal(b, c)
+    labels, sub = built[0], built[1]
+    assert torch.equal(
+        sk.stats_from_labels(x, labels, sub, valid, 8, "gaussian"),
+        sk.stats_from_labels(feat, labels, sub, valid, 8))
+
+
+def test_fused_assign_reference_matches_pallas_at_k256(rng):
+    """Above 128 slots (the one-pass width of the CUDA kernel A) the plain
+    version still gives the Pallas kernel's labels."""
+    feat, phi_mat, log_w, valid = _case(rng, n=512, d=2, k=256)
+    seed = 4242
+    for hard in (True, False):
+        lj, sj, stj = ps.fused_assign(
+            seed, jnp.asarray(feat), jnp.asarray(valid.reshape(-1, 128)),
+            jnp.asarray(phi_mat), jnp.asarray(log_w), int(hard), k_slots=256,
+            family_name="precomputed", tile=512, interpret=True,
+            ll_precision="highest", stats_precision="highest")
+        lt, st_, stt = sk.fused_assign_reference(
+            *_tt(feat, valid, phi_mat, log_w), seed, 0, hard)
+        lj, sj = np.asarray(lj).reshape(-1), np.asarray(sj).reshape(-1)
+        if hard:
+            np.testing.assert_array_equal(lt.numpy(), lj)
+        else:
+            assert (lt.numpy() == lj).mean() >= SOFT_AGREE
+            assert (st_.numpy() == sj).mean() >= SOFT_AGREE
+        np.testing.assert_allclose(stt.numpy(), np.asarray(stj),
+                                   rtol=STATS_RTOL, atol=STATS_ATOL)
+    assert len(np.unique(lt.numpy())) > 128     # columns past one pass won
+
+
+def test_wrappers_refuse_unknown_variants():
+    meta = torch.empty((128, 4), device="meta")
+    lab = torch.empty(128, dtype=torch.int32, device="meta")
+    valid = torch.empty(128, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="family_name"):
+        sk.stats_from_labels(meta, lab, lab, valid, 4, "hybrid")
+    with pytest.raises(ValueError, match="expected cuda"):
+        sk.fused_assign(meta, valid, torch.empty((15, 8), device="meta"),
+                        torch.empty(4, device="meta"), 1,
+                        family_name="gaussian")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["gaussian", "multinomial"])
+def test_cuda_built_rows_match_plain_and_cache_rows(rng, family):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels)")
+    x, phi_mat, log_w, valid = _raw_case(rng, family, n=4096,
+                                         d=_D[family])
+    args = [t.cuda() for t in _tt(x, valid, phi_mat, log_w)]
+    lk, sk_, stk = sk.fused_assign(*args, 5, 0, True, family_name=family)
+    lp, _, _ = sk.fused_assign_reference(*args, 5, 0, True,
+                                         family_name=family)
+    assert (lk == lp).float().mean() >= 0.999
+    want = sk.stats_from_labels_reference(args[0], lk, sk_, args[1], 8,
+                                          family)
+    torch.testing.assert_close(stk, want, rtol=STATS_RTOL, atol=STATS_ATOL)
+    from dpmmsubclusters_tpu_torch.priors import GAUSSIAN as TG
+    from dpmmsubclusters_tpu_torch.priors import MULTINOMIAL as TMN
+
+    feat = (TG if family == "gaussian" else TMN).features(args[0])
+    twin = sk.fused_assign(feat, *args[1:], 5, 0, True)
+    for a, b in zip((lk, sk_, stk), twin):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [192, 256])
+def test_cuda_kernel_a_takes_any_k(rng, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels)")
+    feat, phi_mat, log_w, valid = _case(rng, n=4096, k=k)
+    args = [t.cuda() for t in _tt(feat, valid, phi_mat, log_w)]
+    lk, sk_, stk = sk.fused_assign(*args, 5, 0, True)
+    lp, sp, _ = sk.fused_assign_reference(*args, 5, 0, True)
+    assert (lk == lp).float().mean() >= 0.999
+    assert (sk_ == sp).float().mean() >= 0.999
+    torch.testing.assert_close(
+        stk, sk.stats_from_labels_reference(args[0], lk, sk_, args[1], k),
+        rtol=STATS_RTOL, atol=STATS_ATOL)
