@@ -1,29 +1,42 @@
 """Smoke test of the PyTorch/CUDA port (dpmmsubclusters_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels from csrc/, checks each kernel
 and variant against its plain PyTorch version at the shapes the fits give it
-(and the raw-point variants against the cache variant bit for bit), then
-drives ``fit`` through every path of the port:
+(and the raw-point and bf16 variants against the f32 cache variant bit for
+bit), runs kernel E's build gate (a well-formed kernel builds and runs,
+its ill-formed twin makes the build raise), then drives ``fit`` through
+every path of the port:
 
 * Gaussian with the f32 feature cache: the 4-corner gate, the 200k x 32-d
   recovery gate and the 1M x 32-d flagship;
 * Gaussian with the rows built in the kernels: the flagship without its
-  cache, and the 10M x 64-d fit whose cache (86 GB) would not fit the card;
-* multinomial: 50k x 100-d and 1M x 100-d.
+  cache, and the 10M x 64-d fit whose f32 cache (86 GB) would not fit the
+  card;
+* Gaussian with a bf16 cache: "bfloat16" (4 corners, the flagship) and
+  "hybrid" (200k x 32-d, the flagship, and the 10M x 64-d fit with its
+  42.9 GB cache);
+* multinomial: 50k x 100-d and 1M x 100-d;
+
+and profiles 8 steady sweeps of each 10M x 64-d fit with torch.profiler.
 
     python3 chip_smoke.py
 
 Any failed check raises (non-zero exit).  On success the line before the
 last is a JSON object describing each kernel variant (launches in the fit
-that drives it, error against the plain version, kernel and plain times),
-preceded by the card's name and power limit from nvidia-smi; the last line
-is ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
-CUDA is unavailable.  Imports nothing of JAX.
+that drives it, error against the plain version, kernel, plain and library
+times, and the least time the card could take), preceded by the card's
+name and power limit from nvidia-smi; the last line is ``{"ok": true,
+"device": {...}}``.  Exits non-zero without a result when CUDA is
+unavailable.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import copy
+import gc
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -35,11 +48,17 @@ SEED = 12345
 REPLACES = {
     "fused_assign": "dpmmsubclusters_tpu/ops/pallas_sweep.py:518",
     "stats_from_labels": "dpmmsubclusters_tpu/ops/pallas_sweep.py:439",
+    "build_gate": "tests/test_mosaic_compile.py:88",
 }
 SOURCES = {
     "fused_assign": "dpmmsubclusters_tpu_torch/csrc/fused_assign.cu",
     "stats_from_labels": "dpmmsubclusters_tpu_torch/csrc/stats_from_labels.cu",
+    "build_gate": "chip_smoke.py",      # GATE_KERNEL, built by _build.py
 }
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s and
+# float32 FLOP/s outside the tensor cores (the kernels use none)
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -79,6 +98,15 @@ def separated_data(n: int, d: int, k_true: int, seed: int = 0):
     return x, labels
 
 
+def least_time(nbytes: float, flop: float) -> dict:
+    """The least time the card could take for work that must move
+    ``nbytes`` and do ``flop``: the larger of the two at the peaks."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_flop = flop / FP32_FLOP_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_flop),
+                bound_by="bytes" if t_bytes >= t_flop else "operations")
+
+
 def close(torch, got, want, rtol: float, atol: float) -> float:
     """Max |got - want|; raises unless |got - want| <= atol + rtol |want|."""
     err = (got - want).abs()
@@ -91,17 +119,21 @@ def close(torch, got, want, rtol: float, atol: float) -> float:
 
 class Case:
     """One kernel check's inputs on the card: the rows ``x`` of a variant
-    (the raw points, or with ``cache`` the Gaussian feature cache), a
-    [F, 2K] phi_mat drawn by the family at random posteriors, uniform
-    log-weights and ``valid`` (the last 1000 rows invalid)."""
+    (the raw points, or with ``cache`` the Gaussian feature cache in that
+    layout: "float32", or "bfloat16" built as fit builds it), a [F, 2K]
+    phi_mat drawn by the family at random posteriors, uniform log-weights
+    and ``valid`` (the last 1000 rows invalid).  ``raw`` keeps the points
+    (a bf16 cache's case turns "hybrid" with :meth:`as_hybrid`)."""
 
     def __init__(self, torch, dev, x_np, family: str, k: int,
-                 cache: bool = False):
+                 cache: str = ""):
         from dpmmsubclusters_tpu_torch.priors import GAUSSIAN, MULTINOMIAL
         from dpmmsubclusters_tpu_torch.sampler.assign import _delta_phi
+        from dpmmsubclusters_tpu_torch.sampler.driver import bf16_features
 
         self.family, self.k = family, k
-        self.x = torch.as_tensor(x_np).to(dev)
+        self.x = self.raw = torch.as_tensor(x_np).to(dev)
+        self.x_raw = None
         n, d = self.x.shape
         gen = torch.Generator(device=dev).manual_seed(1)
         ones = torch.ones(k, 3, dtype=torch.bool, device=dev)
@@ -123,14 +155,40 @@ class Case:
         self.valid = torch.ones(n, dtype=torch.bool, device=dev)
         self.valid[-1000:] = False
         self.gen = gen
-        if cache:
+        # multiplies a point's built rows need: triu(x x^T) for the Gaussian
+        self.built = d * (d + 1) // 2 if family == "gaussian" else 0
+        if cache == "float32":
             self.x, self.family = GAUSSIAN.features(self.x), "precomputed"
+        elif cache == "bfloat16":
+            self.x, self.family = bf16_features(GAUSSIAN, self.x,
+                                                SEED), "bfloat16"
+        if cache:
+            self.built = 0
+
+    def as_hybrid(self) -> "Case":
+        """The same bf16 cache as a "hybrid" container: its statistics are
+        built from the raw points."""
+        h = copy.copy(self)
+        h.family, h.x_raw = "hybrid", self.raw
+        h.built = self.raw.shape[1] * (self.raw.shape[1] + 1) // 2
+        return h
 
     def args(self):
         return (self.x, self.valid, self.phi_mat, self.log_w, SEED, 0)
 
     def kw(self):
-        return dict(tile=HASH_TILE, family_name=self.family)
+        kw = dict(tile=HASH_TILE, family_name=self.family)
+        if self.x_raw is not None:
+            kw["x_raw"] = self.x_raw
+        return kw
+
+    def row_bytes(self) -> int:
+        """Bytes of the rows the kernels read (the raw points beside a
+        hybrid cache included)."""
+        nb = self.x.numel() * self.x.element_size()
+        if self.x_raw is not None:
+            nb += self.x_raw.numel() * self.x_raw.element_size()
+        return nb
 
 
 def check_assign(torch, sk, name: str, case: Case, smi: str) -> dict:
@@ -169,8 +227,12 @@ def check_assign(torch, sk, name: str, case: Case, smi: str) -> dict:
     agree_s = float((sk_ == sp).float().mean())
     log(f"{name} soft: labels agree {agree_l:.6f}, sub-labels {agree_s:.6f}")
     assert agree_l >= 0.999 and agree_s >= 0.999, (name, agree_l, agree_s)
-    st_plain = sk.stats_from_labels_reference(x, lk, sk_, valid, k,
-                                              case.family)
+    if case.x_raw is None:
+        st_plain = sk.stats_from_labels_reference(x, lk, sk_, valid, k,
+                                                  case.family)
+    else:      # hybrid: the statistics are the raw points' Gaussian rows
+        st_plain = sk.stats_from_labels_reference(case.x_raw, lk, sk_, valid,
+                                                  k, "gaussian")
     err = close(torch, stk, st_plain, 1e-4, 1e-3)
     l2, s2, st2 = run(False)
     assert torch.equal(l2, lk) and torch.equal(s2, sk_) and torch.equal(
@@ -178,9 +240,19 @@ def check_assign(torch, sk, name: str, case: Case, smi: str) -> dict:
     ms = time_ms(torch, lambda: run(False))
     plain_ms = time_ms(torch, lambda: plain(False))
     f = case.phi_mat.shape[0]
-    log(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms (N={n}, F={f}, "
-        f"K={k}; {smi}); max abs err {err:.3g}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # the function needs each point's whole columns and its label's one
+    # delta column (2 flop a term), the built rows' products and one add a
+    # statistic; it reads the rows, valid, phi and log_w once and writes
+    # labels, sub-labels and the statistics
+    n_valid = int(valid.sum())
+    b = least_time(case.row_bytes() + n + 4 * (f * 2 * k + k) + 8 * n
+              + 4 * 2 * k * f,
+              2.0 * n * f * (k + 1) + n * case.built + n_valid * f)
+    log(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}) (N={n}, F={f}, K={k}; "
+        f"{smi}); max abs err {err:.3g}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
+                library_ms=None)
 
 
 def check_stats(torch, sk, name: str, case: Case, smi: str) -> dict:
@@ -205,9 +277,28 @@ def check_stats(torch, sk, name: str, case: Case, smi: str) -> dict:
     assert torch.equal(stb, run()), f"{name} is not deterministic"
     ms = time_ms(torch, run)
     plain_ms = time_ms(torch, plain)
-    log(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms (N={n}, "
-        f"F={stb.shape[1]}, K={k}; {smi}); max abs err {err:.3g}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    f = stb.shape[1]
+    library_ms = None
+    if case.family == "precomputed":
+        # the one PyTorch call that computes the same sums: index_add_ of
+        # every row, invalid rows keyed to a spare row 2K
+        key = torch.where(valid, sub.long() * k + labels.long(), 2 * k)
+        zeros = torch.zeros((2 * k + 1, f), device=x.device)
+
+        def library():
+            return torch.index_add(zeros, 0, key, x)
+
+        close(torch, library()[:2 * k], stb, 1e-4, 1e-3)
+        library_ms = time_ms(torch, library)
+    # reads the rows, labels, sub-labels and valid once, writes the
+    # statistics; one add a statistic and the built rows' products
+    b = least_time(case.row_bytes() + 9 * n + 4 * 2 * k * f,
+              n * case.built + int(valid.sum()) * f)
+    log(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+        f"{library_ms} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}) "
+        f"(N={n}, F={f}, K={k}; {smi}); max abs err {err:.3g}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
+                library_ms=library_ms)
 
 
 def twin_gate(torch, sk, case: Case) -> None:
@@ -234,6 +325,141 @@ def twin_gate(torch, sk, case: Case) -> None:
         f"and B (N={case.x.shape[0]}, D={case.x.shape[1]}, K={case.k})")
 
 
+def bf16_twin_gate(torch, sk, case: Case) -> None:
+    """The "bfloat16" variants on a bf16 cache against the "precomputed"
+    ones on cache.float(): labels, sub-labels and statistics equal bit for
+    bit (the upcast is exact and feeds the same FMA chains).  The "hybrid"
+    labels and sub-labels equal them too, and its statistics equal kernel
+    B "gaussian" on the raw points at those labels."""
+    hyb = case.as_hybrid()
+    twin_x = case.x.float()
+    for hard in (True, False):
+        twin = sk.fused_assign(twin_x, *case.args()[1:], hard, tile=HASH_TILE)
+        got = sk.fused_assign(*case.args(), hard, **case.kw())
+        for what, a, b in zip(("labels", "sub-labels", "stats"), got, twin):
+            assert torch.equal(a, b), f"kernel A bfloat16 twins differ: {what}"
+        hy = sk.fused_assign(*hyb.args(), hard, **hyb.kw())
+        assert torch.equal(hy[0], twin[0]) and torch.equal(hy[1], twin[1]), \
+            "kernel A hybrid labels differ from the f32 twin's"
+        assert torch.equal(hy[2], sk.stats_from_labels(
+            case.raw, hy[0], hy[1], case.valid, case.k, "gaussian")), \
+            "kernel A hybrid statistics differ from kernel B gaussian"
+    assert torch.equal(
+        sk.stats_from_labels(case.x, got[0], got[1], case.valid, case.k,
+                             "bfloat16"),
+        sk.stats_from_labels(twin_x, got[0], got[1], case.valid, case.k)), \
+        "kernel B bfloat16 twins differ"
+    log(f"bf16 twin gate: bfloat16 == precomputed on cache.float() bit for "
+        f"bit for A (hard, soft) and B; hybrid labels equal, its statistics "
+        f"== B gaussian (N={case.x.shape[0]}, F={case.x.shape[1]}, "
+        f"K={case.k})")
+
+
+def check_bf16(torch, sk, out: dict, x, k: int, smi: str, main: bool):
+    """Kernel A "bfloat16" and "hybrid" and kernel B "bfloat16" on the bf16
+    cache of ``x``: the twin gate, then each against its plain version.
+    ``main`` names the shapes the report keeps for a variant."""
+    from dpmmsubclusters_tpu_torch.priors import GAUSSIAN
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    case = Case(torch, x.device, x, "gaussian", k, cache="bfloat16")
+    torch.cuda.synchronize()
+    f = GAUSSIAN.feature_dim(x.shape[1])
+    log(f"bf16 cache of {x.shape[0]} x {x.shape[1]}-d (F={f}) built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    tag = f" F={f} K={k}"
+    bf16_twin_gate(torch, sk, case)
+    out["fused_assign[bfloat16]" + ("" if main else tag)] = check_assign(
+        torch, sk, "kernel A bfloat16" + tag, case, smi)
+    out["stats_from_labels[bfloat16]" + ("" if main else tag)] = check_stats(
+        torch, sk, "kernel B bfloat16" + tag, case, smi)
+    out["fused_assign[hybrid]" + ("" if not main else tag)] = check_assign(
+        torch, sk, "kernel A hybrid" + tag, case.as_hybrid(), smi)
+    del case
+    torch.cuda.empty_cache()
+
+
+# Kernel E: the TPU test's kernel adds a float lane iota to an (8, 128)
+# tile, which Mosaic refuses; in CUDA that is legal, so the gate builds and
+# runs it, and refuses the same kernel with an undeclared name
+GATE_KERNEL = """#include <cuda_runtime.h>
+__global__ void lane_iota(const float* x, float* o, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = x[i] + static_cast<float>(i % 128);
+}
+extern "C" int gate_lane_iota(const float* x, float* o, int n, void* st) {
+  lane_iota<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(st)>>>(
+      x, o, n);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+GATE_ILL_FORMED = GATE_KERNEL.replace("static_cast<float>(i % 128)",
+                                      "undeclared_iota")
+
+
+def build_gate(torch, _build, smi: str) -> dict:
+    """Kernel E, the port of the Mosaic verifier gate
+    (tests/test_mosaic_compile.py:88): ``_build.build`` compiles the lane
+    iota kernel, which then runs once and matches its plain version, and
+    must raise with nvcc's own message on its ill-formed twin."""
+    import ctypes
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        good, bad = pathlib.Path(tmp, "good"), pathlib.Path(tmp, "bad")
+        good.mkdir()
+        bad.mkdir()
+        (good / "lane_iota.cu").write_text(GATE_KERNEL)
+        (bad / "lane_iota.cu").write_text(GATE_ILL_FORMED)
+        lib = ctypes.CDLL(str(_build.build(src_dir=good)))
+        t0 = time.perf_counter()
+        try:
+            _build.build(src_dir=bad)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("build gate: an ill-formed .cu built")
+        refused_s = time.perf_counter() - t0
+    assert "nvcc failed" in msg and "undeclared_iota" in msg, msg
+    line = next(ln for ln in msg.splitlines() if "undeclared_iota" in ln)
+    log(f"build gate: the ill-formed lane_iota.cu was refused in "
+        f"{refused_s:.2f} s: {line.strip()[-60:]}")
+
+    fn = lib.gate_lane_iota
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    launches = 0
+    x = torch.randn((8, 128), device="cuda")   # the TPU kernel's tile
+    o = torch.empty_like(x)
+    lane = torch.arange(128, dtype=torch.float32, device="cuda")
+
+    def run():
+        nonlocal launches
+        rc = fn(x.data_ptr(), o.data_ptr(), x.numel(),
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"lane_iota launch: CUDA error {rc}"
+        launches += 1
+        return o
+
+    def plain():        # also the one PyTorch call that computes it
+        return x + lane
+
+    run()
+    torch.cuda.synchronize()
+    n_path = launches          # the gate's own run; the checks come after
+    err = float((run() - plain()).abs().max())
+    assert err == 0.0, f"lane_iota differs from x + iota by {err}"
+    ms, plain_ms = time_ms(torch, run), time_ms(torch, plain)
+    b = least_time(2 * x.numel() * 4, x.numel())
+    log(f"build gate: lane_iota built and ran, {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b['bound_ms']:.2e} ms ({b['bound_by']}) "
+        f"on an (8, 128) tile ({smi}); max abs err {err}")
+    return dict(launches=n_path, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **b, library_ms=plain_ms)
+
+
 def check_kernels(torch, dev, smi: str) -> dict:
     """Every kernel variant against its plain version at the main paths'
     shapes (hash tile 512)."""
@@ -247,18 +473,21 @@ def check_kernels(torch, dev, smi: str) -> dict:
     case = Case(torch, dev, x, "gaussian", K_MAX_FLAG)
     twin_gate(torch, sk, case)
     del case
-    cache = Case(torch, dev, x, "gaussian", K_MAX_FLAG, cache=True)
+    cache = Case(torch, dev, x, "gaussian", K_MAX_FLAG, cache="float32")
     out["fused_assign[precomputed]"] = check_assign(
         torch, sk, "kernel A precomputed", cache, smi)
     out["stats_from_labels[precomputed]"] = check_stats(
         torch, sk, "kernel B precomputed", cache, smi)
     del cache
     for k in (192, 256):      # above one pass: any K (the K <= 128 repair)
-        wide = Case(torch, dev, x, "gaussian", k, cache=True)
+        wide = Case(torch, dev, x, "gaussian", k, cache="float32")
         out[f"fused_assign[precomputed] K={k}"] = check_assign(
             torch, sk, f"kernel A precomputed K={k}", wide, smi)
         del wide
     torch.cuda.empty_cache()
+    # the flagship's bf16 caches (bfloat16's main path)
+    check_bf16(torch, sk, out, torch.as_tensor(x).to(dev), K_MAX_FLAG, smi,
+               main=True)
 
     # the 10M x 64-d fit's rows, built in the kernels: D=64, F=2145, K=256
     x, _ = separated_data(N_CHECK, 64, 100)
@@ -268,6 +497,9 @@ def check_kernels(torch, dev, smi: str) -> dict:
         torch, sk, "kernel A gaussian", case, smi)
     out["stats_from_labels[gaussian]"] = check_stats(
         torch, sk, "kernel B gaussian", case, smi)
+    # ... and its 42.9 GB hybrid cache's rows (hybrid's main path): the
+    # wide kernel over bf16 rows
+    check_bf16(torch, sk, out, case.raw, 256, smi, main=False)
     del case
     torch.cuda.empty_cache()
 
@@ -283,30 +515,120 @@ def check_kernels(torch, dev, smi: str) -> dict:
     return out
 
 
-def run_fit(torch, name: str, x, gt, variant: str, **kw):
+def run_fit(torch, name: str, x, gt, variant, **kw) -> dict:
     """One ``fit`` on the card, ground truth given (block-boundary NMI in
     the history), with every launch count set to 0 just before; asserts
-    that both kernels ran in ``variant`` and in no other.  Returns (result,
-    nmi, launch counts of the variant, ms/sweep)."""
+    that each kernel ran in its variant (``variant``: one for both, or a
+    dict by kernel) and in no other.  Returns the result, NMI, the launch
+    counts by kernel and variant, ms/sweep and the cache build's seconds."""
     import dpmmsubclusters_tpu_torch as dpmm
     from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+    from dpmmsubclusters_tpu_torch.sampler.driver import DPMMEngine
+
+    kernels = (sk.fused_assign, sk.stats_from_labels)
+    if isinstance(variant, str):
+        variant = dict.fromkeys((fn.__name__ for fn in kernels), variant)
+    featurize, feat_s = DPMMEngine.featurize, []
+
+    def timed_featurize(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = featurize(self, *a, **k)
+        torch.cuda.synchronize()
+        feat_s.append(time.perf_counter() - t0)
+        return out
 
     sk.reset_launches()
-    t0 = time.perf_counter()
-    res = dpmm.fit(x, device="cuda", verbose=False, gt=gt, **kw)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = {fn.__name__: dict(fn.launches)
-              for fn in (sk.fused_assign, sk.stats_from_labels)}
+    torch.cuda.reset_peak_memory_stats()
+    DPMMEngine.featurize = timed_featurize
+    try:
+        t0 = time.perf_counter()
+        res = dpmm.fit(x, device="cuda", verbose=False, gt=gt, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        DPMMEngine.featurize = featurize
+    counts = {fn.__name__: dict(fn.launches) for fn in kernels}
     for fn, by_variant in counts.items():
         ran = {v for v, c in by_variant.items() if c}
-        assert ran == {variant}, (name, fn, by_variant)
+        assert ran == {variant[fn]}, (name, fn, by_variant)
     nmi = dpmm.nmi(gt, res.labels)
     ms_sweep = float(np.median(res.history.times[-40:])) * 1e3
-    log(f"{name}: K={res.k} NMI={nmi:.6f} in {secs:.1f} s, median "
-        f"{ms_sweep:.2f} ms/sweep over the last 40 sweeps, launches "
-        f"{counts}")
-    return res, nmi, {fn: c[variant] for fn, c in counts.items()}, ms_sweep
+    cache = (f", cache ({res.model.cfg.feature_dtype}) built in "
+             f"{feat_s[0]:.3f} s" if feat_s else "")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{name}: K={res.k} NMI={nmi:.6f} in {secs:.1f} s{cache}, median "
+        f"{ms_sweep:.2f} ms/sweep over the last 40 sweeps, peak device "
+        f"memory {peak:.2f} GB, launches {counts}")
+    return dict(res=res, nmi=nmi, launches=counts, ms=ms_sweep,
+                featurize_s=feat_s[0] if feat_s else None)
+
+
+def profile_sweeps(torch, res, x, name: str, smi: str, sweeps: int = 8):
+    """Device time by kernel of ``sweeps`` steady sweeps of a fitted model
+    (its table, labels and config; the points placed and, with a cache,
+    featurized again, timed) under torch.profiler, in ms/sweep."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpmmsubclusters_tpu_torch.sampler.driver import DPMMEngine, DPMMState
+
+    m = res.model
+    dev = m.table["active"].device
+    engine = DPMMEngine(m.family, m.cfg, dev)
+    points, valid, n_total = engine.shard_points((x - m.shift) * m._scale)
+    feat_s = None
+    if m.cfg.precompute_features:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        points = engine.featurize(points, seed=m.cfg.seed)
+        torch.cuda.synchronize()
+        feat_s = time.perf_counter() - t0
+    state = DPMMState(m.table, torch.as_tensor(m.labels_raw).to(dev),
+                      torch.as_tensor(m.sublabels).to(dev),
+                      torch.Generator(device=dev).manual_seed(0), m.step)
+    off = [False]
+    state, _ = engine.step_block(state, points, valid, n_total, off, off)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, met = engine.step_block(state, points, valid, n_total,
+                                       off * sweeps, off * sweeps)
+        met["k"].tolist()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / sweeps
+    parts = {"assign pass": 0.0, "statistics pass": 0.0,
+             "chunk reduction": 0.0, "table math": 0.0}
+    launches = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        part = ("assign pass" if "assign" in ev.name else
+                "statistics pass" if "stats_partial" in ev.name else
+                "chunk reduction" if "stats_reduce" in ev.name else
+                "table math")
+        parts[part] += us / 1e3 / sweeps
+        launches += 1
+    busy = sum(parts.values())
+    if not launches:
+        log(f"profile {name}: torch.profiler traced no device events")
+    out = {k: round(v, 3) for k, v in parts.items()}
+    log(f"profile {name}, {sweeps} sweeps at width "
+        f"{m.table['active'].shape[0]}, K={int(met['k'][-1])}: device "
+        f"ms/sweep {out}, {launches / sweeps:.0f} kernel launches a sweep, "
+        f"busy {busy:.2f} of {wall:.2f} ms wall (profiled; idle "
+        f"{max(0.0, 1 - busy / wall):.1%})"
+        + (f", cache rebuilt in {feat_s:.3f} s" if feat_s else "")
+        + f" ({smi})")
+    del points, state
+    return dict(parts=out, wall_ms=wall, featurize_s=feat_s)
+
+
+def free(torch) -> None:
+    """Return the card's cached blocks after a large fit."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -330,83 +652,132 @@ def main() -> int:
     lib = _build.build(verbose=True)
     _build.load()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-
     kernels = check_kernels(torch, dev, smi)
-    launches = {}
+    kernels["build_gate"] = build_gate(torch, _build, smi)
+    log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
+    launches = {}      # the main path of each variant: launch counts
 
-    # 4-corner golden gate (tests/test_fit_e2e.py::TestFourCorners)
+    # 4-corner golden gate (tests/test_fit_e2e.py::TestFourCorners), with
+    # the f32 cache and with the bf16 one
     x = np.zeros((1000, 2), np.float32)
     gt = np.zeros(1000, np.int64)
     for i, c in enumerate([[10, 10], [-10, 10], [10, -10], [-10, -10]]):
         x[i * 250:(i + 1) * 250] = c
         gt[i * 250:(i + 1) * 250] = i
-    res, nmi, _, _ = run_fit(torch, "4 corners", x, gt, "precomputed",
-                             alpha=100.0, iters=100, seed=12345, burnout=5)
-    pred, _ = res.predict(x)
-    assert res.k == 4 and nmi == 1.0, (res.k, nmi)
-    assert np.array_equal(pred, res.labels), "predict != labels"
+    corners = dict(alpha=100.0, iters=100, seed=12345, burnout=5)
+    for layout, variant in (("float32", "precomputed"),
+                            ("bfloat16", "bfloat16")):
+        r = run_fit(torch, f"4 corners ({layout} cache)", x, gt, variant,
+                    feature_dtype=layout, **corners)
+        pred, _ = r["res"].predict(x)
+        assert r["res"].k == 4 and r["nmi"] == 1.0, (r["res"].k, r["nmi"])
+        assert np.array_equal(pred, r["res"].labels), "predict != labels"
 
-    # 200k x 32-d recovery (benchmarks/stats_precision_ab.py quality data)
+    # 200k x 32-d recovery (benchmarks/stats_precision_ab.py quality data),
+    # with the f32 cache and with the hybrid one
     rng = np.random.default_rng(0)
     means = rng.standard_normal((20, 32)).astype(np.float32) * 8.0
     gt = rng.integers(0, 20, size=200_000)
     x = means[gt] + rng.standard_normal((200_000, 32)).astype(np.float32)
-    res, nmi, _, _ = run_fit(torch, "200k x 32-d", x, gt, "precomputed",
-                             alpha=10.0, iters=200, seed=1, k_max=64)
-    assert res.k == 20 and nmi == 1.0, (res.k, nmi)
+    hybrid = {"fused_assign": "hybrid", "stats_from_labels": "gaussian"}
+    for layout, variant in (("float32", "precomputed"), ("hybrid", hybrid)):
+        r = run_fit(torch, f"200k x 32-d ({layout} cache)", x, gt, variant,
+                    alpha=10.0, iters=200, seed=1, k_max=64,
+                    precompute_features=True, feature_dtype=layout)
+        assert r["res"].k == 20 and r["nmi"] == 1.0, (r["res"].k, r["nmi"])
 
     # 1M x 32-d flagship: bench.py's data and config, through fit, with the
-    # f32 feature cache and then with the rows built in the kernels
+    # f32 feature cache, with the rows built in the kernels and with the
+    # two bf16 caches
     x, gt = separated_data(N_FLAG, D_FLAG, K_TRUE_FLAG)
     flag = dict(alpha=10.0, iters=120, seed=0, k_max=K_MAX_FLAG,
                 chunk_size=16384, burnout=5, track_posterior=False,
                 merge_candidates=K_MAX_FLAG)
-    res, nmi, launches["precomputed"], ms_cache = run_fit(
-        torch, "flagship 1M x 32-d", x, gt, "precomputed",
-        precompute_features=True, **flag)
-    assert res.k == K_TRUE_FLAG and nmi >= 0.999, (res.k, nmi)
-    res, nmi, _, ms_built = run_fit(
-        torch, "flagship 1M x 32-d without the cache", x, gt, "gaussian",
-        precompute_features=False, **flag)
-    assert res.k == K_TRUE_FLAG and nmi >= 0.999, (res.k, nmi)
-    log(f"flagship: {ms_cache:.2f} ms/sweep with the cache, {ms_built:.2f} "
-        f"without = {N_FLAG / ms_cache * 1e3:.4g} and "
-        f"{N_FLAG / ms_built * 1e3:.4g} point-sweeps/s ({smi})")
+    ms = {}
+    for layout, variant, cached in (("float32", "precomputed", True),
+                                    ("float32", "gaussian", False),
+                                    ("hybrid", hybrid, True),
+                                    ("bfloat16", "bfloat16", True)):
+        what = f"{layout} cache" if cached else "no cache"
+        r = run_fit(torch, f"flagship 1M x 32-d ({what})", x, gt, variant,
+                    precompute_features=cached, feature_dtype=layout, **flag)
+        ms[what] = r["ms"]
+        if layout == "bfloat16":
+            # reported, not gated: the JAX package documents that this
+            # layout's bf16 statistics make the chain under-split
+            # (config.feature_dtype)
+            launches["bfloat16"] = r["launches"]
+            continue
+        if cached and layout == "float32":
+            launches["precomputed"] = r["launches"]
+        assert r["res"].k == K_TRUE_FLAG and r["nmi"] >= 0.999, (
+            what, r["res"].k, r["nmi"])
+    log("flagship ms/sweep: " + ", ".join(
+        f"{w} {v:.2f} ({N_FLAG / v * 1e3:.4g} point-sweeps/s)"
+        for w, v in ms.items()) + f" ({smi})")
+    del r
 
     # multinomial (benchmarks/suite.py:69-76, and its 1M-document shape)
     mnm = dict(family="multinomial", alpha=1.0, seed=1, burnout=10)
     x, gt, _ = dpmm.generate_mnmm_data(50_000, 100, 10, 120, seed=0)
-    res, nmi, _, _ = run_fit(torch, "multinomial 50k x 100-d", x, gt,
-                             "multinomial", iters=100, k_max=32, **mnm)
-    assert res.k == 10 and nmi >= 0.999, (res.k, nmi)
+    r = run_fit(torch, "multinomial 50k x 100-d", x, gt, "multinomial",
+                iters=100, k_max=32, **mnm)
+    assert r["res"].k == 10 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
     x, gt, _ = dpmm.generate_mnmm_data(1_000_000, 100, 20, 120, seed=0)
-    res, nmi, launches["multinomial"], _ = run_fit(
-        torch, "multinomial 1M x 100-d", x, gt, "multinomial", iters=150,
-        k_max=64, **mnm)
-    assert res.k == 20 and nmi >= 0.999, (res.k, nmi)
-    del x, gt, res
+    r = run_fit(torch, "multinomial 1M x 100-d", x, gt, "multinomial",
+                iters=150, k_max=64, **mnm)
+    launches["multinomial"] = r["launches"]
+    assert r["res"].k == 20 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
+    del x, gt, r
+    free(torch)
 
-    # 10M x 64-d (benchmarks/suite.py:128-186, huge_conv, through fit): its
-    # cache would be 10M x 2145 x 4 B = 86 GB, so the rows are built in the
-    # kernels; full size, nothing cut
+    # 10M x 64-d (benchmarks/suite.py:128-186, huge_conv, through fit), full
+    # size, nothing cut: first with the rows built in the kernels (the
+    # cache resolves off: its f32 layout would be 86 GB), then with the
+    # hybrid cache (42.9 GB of bf16 rows beside the 2.56 GB of points)
     x, gt = separated_data(10_000_000, 64, 100)
-    res, nmi, launches["gaussian"], _ = run_fit(
-        torch, "10M x 64-d", x, gt, "gaussian", k_max=256, chunk_size=16384,
-        burnout=5, alpha=10.0, track_posterior=False, merge_candidates=1024,
-        seed=1, iters=160)
-    assert res.model.cfg.precompute_features is False
-    assert res.k == 100 and nmi >= 0.999, (res.k, nmi)
-    del x, gt, res
+    huge = dict(k_max=256, chunk_size=16384, burnout=5, alpha=10.0,
+                track_posterior=False, merge_candidates=1024, seed=1,
+                iters=160)
+    r = run_fit(torch, "10M x 64-d (no cache)", x, gt, "gaussian", **huge)
+    assert r["res"].model.cfg.precompute_features is False
+    assert r["res"].k == 100 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
+    launches["gaussian"] = r["launches"]
+    profile_sweeps(torch, r["res"], x, "10M x 64-d (no cache)", smi)
+    del r
+    free(torch)
+    r = run_fit(torch, "10M x 64-d (hybrid cache)", x, gt, hybrid,
+                precompute_features=True, feature_dtype="hybrid", **huge)
+    assert r["res"].k == 100 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
+    launches["hybrid"] = r["launches"]
+    log(f"10M x 64-d hybrid: {r['ms']:.2f} ms/sweep, cache built in "
+        f"{r['featurize_s']:.3f} s ({smi})")
+    free(torch)
+    profile_sweeps(torch, r["res"], x, "10M x 64-d (hybrid cache)", smi)
+    del x, gt, r
+    free(torch)
 
     report = {"kernels": []}
-    for name in ("fused_assign", "stats_from_labels"):
-        for variant in ("precomputed", "gaussian", "multinomial"):
+    for name, variants in (("fused_assign", ("precomputed", "gaussian",
+                                             "multinomial", "bfloat16",
+                                             "hybrid")),
+                           ("stats_from_labels", ("precomputed", "gaussian",
+                                                  "multinomial",
+                                                  "bfloat16"))):
+        for variant in variants:
+            n_launch = launches[variant][name][variant]
+            assert n_launch > 0, (name, variant, "not launched on its path")
             report["kernels"].append({
                 "name": f"{name}[{variant}]", "route": "cuda",
                 "source": SOURCES[name],
                 "replaces": f"{REPLACES[name]} ({variant} variant)",
-                "launches": launches[variant][name],
+                "launches": n_launch,
                 **kernels[f"{name}[{variant}]"]})
+    # kernel E's path is the build gate itself
+    report["kernels"].append({
+        "name": "build_gate[lane_iota]", "route": "cuda",
+        "source": SOURCES["build_gate"], "replaces": REPLACES["build_gate"],
+        **kernels["build_gate"]})
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(report))

@@ -26,15 +26,26 @@ _NOT_PORTED = "see ROADMAP.md for the slices of the port still to come"
 _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
 
 
+def _cache_row_bytes(fam, cfg: DPMMConfig, d: int) -> int:
+    """Bytes per point of the unpadded feature cache in its layout: F x 4
+    (float32), F x 2 (bfloat16), F x 2 + D x 4 (hybrid: the bf16 cache and
+    the raw points beside it)."""
+    f = fam.feature_dim(d)
+    return {"float32": 4 * f, "bfloat16": 2 * f,
+            "hybrid": 2 * f + 4 * d}[cfg.feature_dtype]
+
+
 def _resolve_precompute(fam, cfg: DPMMConfig, n: int, d: int) -> DPMMConfig:
     """Resolve ``precompute_features`` (None = auto: on for Gaussian data
-    when the unpadded [N, F] f32 cache fits ``feature_cache_bytes``).  An
-    explicit True builds the cache for either family; without it the
-    kernels build the feature rows from the raw points."""
+    when the unpadded cache, in ``feature_dtype``'s layout, fits
+    ``feature_cache_bytes``).  An explicit True builds the cache for either
+    family; without it the kernels build the feature rows from the raw
+    points and ``feature_dtype`` has no effect."""
     pf = cfg.precompute_features
     if pf is None:
         pf = (fam.name == "gaussian"
-              and n * fam.feature_dim(d) * 4 <= cfg.feature_cache_bytes)
+              and n * _cache_row_bytes(fam, cfg, d)
+              <= cfg.feature_cache_bytes)
     return cfg.replace(precompute_features=bool(pf))
 
 
@@ -240,10 +251,6 @@ def fit(
         overrides.setdefault("alpha", float(alpha))
     if overrides:
         cfg = cfg.replace(**overrides)
-    if cfg.feature_dtype != "float32":
-        raise NotImplementedError(
-            f"feature_dtype={cfg.feature_dtype!r}: only the float32 feature "
-            f"cache is ported; {_NOT_PORTED}")
     if cfg.enable_saving:
         raise NotImplementedError(
             f"enable_saving: checkpoints are not ported yet; {_NOT_PORTED}")
@@ -281,10 +288,10 @@ def fit(
     k_start, tiers = _tier_setup(cfg)
     engine = DPMMEngine(fam, cfg.replace(k_max=int(k_start)), dev)
     points, valid, n_total = engine.shard_points(x)
-    if cfg.precompute_features:
-        points = engine.featurize(points)
     seed = (cfg.seed if cfg.seed is not None
             else int(np.random.randint(0, 2**31 - 1)))
+    if cfg.precompute_features:
+        points = engine.featurize(points, seed=seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = engine.init_state(gen, points, valid, prior, outlier_prior)
     state, hist = run_loop(

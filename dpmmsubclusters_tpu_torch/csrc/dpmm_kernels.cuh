@@ -1,6 +1,6 @@
-// Shared pieces of the sweep kernels: the counter-based Gumbel hash, the two
-// sources of feature rows, and the statistics launcher that both C entry
-// points use.
+// Shared pieces of the sweep kernels: the counter-based Gumbel hash, the
+// three sources of feature rows, and the statistics launcher that both
+// kernels' C entry points use.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC,
 //        one object per .cu, linked -shared (no --use_fast_math: the hash's
@@ -10,6 +10,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace dpmm {
@@ -90,9 +91,26 @@ struct BuiltRows {
   }
 };
 
+// Bf16Rows, the "bfloat16" and "hybrid" variants: rows of the bf16 feature
+// cache [N, F] (unpadded; 2-byte loads need no alignment).  The upcast is
+// exact, so a bf16 row feeds the same FMA chain as the f32 cache holding
+// the same values: on cache.float() the "precomputed" variant gives the
+// same bits.
+struct Bf16Rows {
+  const __nv_bfloat16* feat;
+  int f;
+  struct Col {
+    int c;
+  };
+  __device__ __forceinline__ Col col(int c) const { return {c}; }
+  __device__ __forceinline__ float at(Col c, int p) const {
+    return __bfloat162float(feat[static_cast<size_t>(p) * f + c.c]);
+  }
+};
+
 // [LEFT K | RIGHT K] x F statistics of the rows by (label, sub, valid) into
 // ``stats``; ``partial`` is [ceil(n / kStatsChunk), 2K, F] scratch.
-// Instantiated for CacheRows and BuiltRows in stats_from_labels.cu.
+// Instantiated for CacheRows, BuiltRows and Bf16Rows in stats_from_labels.cu.
 template <class Rows>
 cudaError_t launch_stats(Rows rows, const int32_t* labels, const int32_t* sub,
                          const uint8_t* valid, int n, int f, int k,

@@ -1,8 +1,9 @@
 // Kernel A: the per-sweep assignment + statistics pass.
 //
 // Replaces dpmmsubclusters_tpu/ops/pallas_sweep.py:518 fused_assign (kernel
-// body _kernel, :264-385) in its "precomputed", "gaussian" and "multinomial"
-// variants.  Per point, with feat its feature row:
+// body _kernel, :264-385) in all five variants: "precomputed", "gaussian",
+// "multinomial", "bfloat16" and "hybrid".  Per point, with feat its feature
+// row:
 //   ll    = feat @ phi                 phi [F, 2K]: [whole K | delta K]
 //   label = argmax_j (ll_j + log_w_j + G_j)   NaN -> -inf, first max wins,
 //           G_j zeroed in hard mode
@@ -10,10 +11,15 @@
 // then the [LEFT K | RIGHT K] x F statistics of the new labels, masked by
 // ``valid`` (launch_stats, shared with kernel B and launched back to back).
 // The feature rows come from a compile-time source (dpmm_kernels.cuh): the
-// f32 cache [N, F] ("precomputed"), or rows built here from the raw points
-// x [N, D] ("gaussian": [1, x, triu(x x^T)]; "multinomial": [1, x]).  The
-// TPU kernel's selector matmul with bf16 planes exists only to make Mosaic
-// build the Gaussian rows exactly; here a column is one rounded product.
+// f32 cache [N, F] ("precomputed"), rows built here from the raw points
+// x [N, D] ("gaussian": [1, x, triu(x x^T)]; "multinomial": [1, x]), or the
+// bf16 cache [N, F] ("bfloat16": it also feeds the statistics; "hybrid":
+// the statistics are built in f32 from the raw points x [N, D] kept beside
+// it, so the bf16 rounding never reaches them).  The TPU kernel's selector
+// matmul with bf16 planes exists only to make Mosaic build the Gaussian
+// rows exactly; here a column is one rounded product.  The TPU kernel also
+// casts phi to bf16 for a bf16 cache, a Mosaic workaround: here bf16 is
+// storage only, each value is upcast exactly and all arithmetic is f32.
 // The Gumbel noise is the TPU kernel's counter hash, bit for bit: per hash
 // tile of ``tile`` rows the seed is fmix32(seed + (tile_off + row / tile) *
 // 0x9E3779B9) and the counter is (row % tile) * K + j (labels) or
@@ -24,7 +30,10 @@
 // for at most 4F bytes read -- 128 flop/byte at K=128 from the cache, and
 // 2 * 2145 * 512 flop for 256 bytes of x at D=64 and K=256 -- so it is
 // compute-bound in exact float32 (no tensor cores: 67 TFLOP/s peak).  A
-// built row costs one multiply per feature per block, not per column.  The
+// built row costs one multiply per feature per block, not per column.  A
+// bf16 cache halves the bytes read (2F per point), which does not move a
+// compute bound; it halves the cache's memory (10M x 64-d: 42.9 GB against
+// 86 GB), so a cache fits the card where the f32 one does not.  The
 // statistics pass is cheaper (see stats_from_labels.cu).
 //
 // Design (right and simple first; no wgmma or TMA yet): a block of 8 warps
@@ -33,9 +42,11 @@
 // argmax is a warp shuffle reduction and ll never touches device memory.
 // The product is a register-blocked SGEMM over 16-deep slices of F staged in
 // shared memory, two stages so the next slice loads while this one is
-// multiplied: phi slices and cache rows by asynchronous copies (cp.async);
-// built rows are read from x (L1 hits: a block's 64 points are 16 KB at
-// D=64) into registers before the multiply and stored after it.  Feature
+// multiplied: phi slices and f32 cache rows by asynchronous copies
+// (cp.async, 4 bytes each); built rows, read from x (L1 hits: a block's 64
+// points are 16 KB at D=64), and bf16 cache rows (2-byte loads, which
+// cp.async cannot make) go into registers before the multiply and are
+// converted and stored after it, so F needs no padding.  Feature
 // values are warp-broadcast reads, phi reads are conflict-free across lanes.
 // Up to 2K = 256 columns (K <= 128) one pass covers [whole | delta] and the
 // delta column K + label is one shuffle away.  Above, for any K, the whole
@@ -110,9 +121,9 @@ __device__ __forceinline__ void row_products(
                 ok);
     }
   };
-  // rows [row0, row0 + 64) x features [k0, k0 + 16): cache rows copy
-  // straight into the stage; built rows are computed into ``built`` and
-  // stored by store_built once the stage is free
+  // rows [row0, row0 + 64) x features [k0, k0 + 16): f32 cache rows copy
+  // straight into the stage; built and bf16 rows are read into ``built``
+  // and stored by store_built once the stage is free
   auto load_rows = [&](int stage, int k0) {
     const int fc = k0 + kk;
     if constexpr (kCache) {
@@ -373,17 +384,20 @@ cudaError_t launch_assign(Rows rows, const float* phi, const float* delta_t,
   return cudaGetLastError();
 }
 
-template <class Rows>
-int assign_and_stats(Rows rows, const uint8_t* valid, const float* phi,
-                     const float* delta_t, const float* log_w,
-                     const int32_t* seed, int tile_off, int hard, int tile,
-                     int n, int f, int k, int32_t* labels, int32_t* sub,
-                     float* partial, float* stats, cudaStream_t st) {
+// The assign pass over ``rows``, then the statistics pass over
+// ``stat_rows`` (the same rows, or for "hybrid" the rows built from x).
+template <class Rows, class StatRows>
+int assign_and_stats(Rows rows, StatRows stat_rows, const uint8_t* valid,
+                     const float* phi, const float* delta_t,
+                     const float* log_w, const int32_t* seed, int tile_off,
+                     int hard, int tile, int n, int f, int k,
+                     int32_t* labels, int32_t* sub, float* partial,
+                     float* stats, cudaStream_t st) {
   cudaError_t err = launch_assign(rows, phi, delta_t, log_w, seed, tile_off,
                                   hard, tile, n, f, k, labels, sub, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_stats(rows, labels, sub, valid, n, f, k, partial, stats, st));
+  return static_cast<int>(launch_stats(stat_rows, labels, sub, valid, n, f,
+                                       k, partial, stats, st));
 }
 
 }  // namespace
@@ -401,11 +415,38 @@ extern "C" int dpmm_fused_assign(const float* rows, const int32_t* pairs,
                                  float* partial, float* stats, void* stream) {
   using namespace dpmm;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pairs != nullptr)
-    return assign_and_stats(BuiltRows{rows, pairs, d}, valid, phi, delta_t,
-                            log_w, seed, tile_off, hard, tile, n, f, k,
-                            labels, sub, partial, stats, st);
-  return assign_and_stats(CacheRows{rows, f}, valid, phi, delta_t, log_w, seed,
+  if (pairs != nullptr) {
+    const BuiltRows built{rows, pairs, d};
+    return assign_and_stats(built, built, valid, phi, delta_t, log_w, seed,
+                            tile_off, hard, tile, n, f, k, labels, sub,
+                            partial, stats, st);
+  }
+  const CacheRows cache{rows, f};
+  return assign_and_stats(cache, cache, valid, phi, delta_t, log_w, seed,
+                          tile_off, hard, tile, n, f, k, labels, sub, partial,
+                          stats, st);
+}
+
+// feat: the bf16 cache [n, f].  raw null: "bfloat16", the statistics come
+// from the same rows.  raw [n, d] with the Gaussian column map pairs [f]:
+// "hybrid", the statistics come from the rows built from raw.
+extern "C" int dpmm_fused_assign_bf16(const void* feat, const float* raw,
+                                      const int32_t* pairs, int d,
+                                      const uint8_t* valid, const float* phi,
+                                      const float* delta_t,
+                                      const float* log_w, const int32_t* seed,
+                                      int tile_off, int hard, int tile, int n,
+                                      int f, int k, int32_t* labels,
+                                      int32_t* sub, float* partial,
+                                      float* stats, void* stream) {
+  using namespace dpmm;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Bf16Rows cache{static_cast<const __nv_bfloat16*>(feat), f};
+  if (raw != nullptr)
+    return assign_and_stats(cache, BuiltRows{raw, pairs, d}, valid, phi,
+                            delta_t, log_w, seed, tile_off, hard, tile, n, f,
+                            k, labels, sub, partial, stats, st);
+  return assign_and_stats(cache, cache, valid, phi, delta_t, log_w, seed,
                           tile_off, hard, tile, n, f, k, labels, sub, partial,
                           stats, st);
 }

@@ -1,19 +1,22 @@
 // Kernel B: per-(slot, side) sufficient statistics from given labels.
 //
 // Replaces dpmmsubclusters_tpu/ops/pallas_sweep.py:439 stats_from_labels
-// (kernel body _stats_kernel, :388-431) in its "precomputed", "gaussian" and
-// "multinomial" variants.  The output is [LEFT K | RIGHT K] x F in float32,
-// rows masked by ``valid``.  The rows come from a compile-time source
-// (dpmm_kernels.cuh): the f32 feature cache [N, F] ("precomputed"), or rows
-// built here from the raw points x [N, D] ("gaussian": [1, x, triu(x x^T)],
-// F = 1 + D + D(D+1)/2; "multinomial": [1, x], F = 1 + D).
+// (kernel body _stats_kernel, :388-431) in its "precomputed", "gaussian",
+// "multinomial" and "bfloat16" variants.  The output is [LEFT K | RIGHT K] x
+// F in float32, rows masked by ``valid``.  The rows come from a
+// compile-time source (dpmm_kernels.cuh): the f32 feature cache [N, F]
+// ("precomputed"), rows built here from the raw points x [N, D]
+// ("gaussian": [1, x, triu(x x^T)], F = 1 + D + D(D+1)/2; "multinomial":
+// [1, x], F = 1 + D), or the bf16 feature cache [N, F] ("bfloat16", each
+// value upcast exactly and summed in f32).  A "hybrid" container's
+// statistics are the "gaussian" variant on its raw points.
 //
 // What bounds it on the H100: on the TPU this was a one-hot MXU matmul
 // ([2K, T] @ [T, F]); here it is a scatter of feature rows, N * F adds.
 // From the cache it is memory-bound: N * F * 4 bytes (2.2 GB per pass at
-// 1M x 32-d, about 0.7 ms at 3.35 TB/s).  Built from x it reads only the
-// points (256 B per point at D=64 against the cache row's 8.6 KB) and the
-// walk over the keys bounds it.  The dense one-hot product would spend 2K
+// 1M x 32-d, about 0.7 ms at 3.35 TB/s; half that from the bf16 cache).
+// Built from x it reads only the points (256 B per point at D=64 against
+// the cache row's 8.6 KB) and the walk over the keys bounds it.  The dense one-hot product would spend 2K
 // times the flops for the same answer.
 //
 // Design: a block owns one chunk of kStatsChunk points, 128 feature columns
@@ -53,10 +56,11 @@ stats_partial_kernel(Rows rows, const int32_t* __restrict__ labels,
                      const int32_t* __restrict__ sub,
                      const uint8_t* __restrict__ valid, int n, int f, int k,
                      float* __restrict__ partial) {
-  // points of the key group read at once: cache rows come from device
-  // memory, so 4 reads in flight beat 1; built rows read x from L1 and the
-  // scan of the keys bounds them, where the batching only adds work
-  constexpr int kWalk = std::is_same<Rows, CacheRows>::value ? 4 : 1;
+  // points of the key group read at once: cache rows (f32 or bf16) come
+  // from device memory, so 4 reads in flight beat 1; built rows read x from
+  // L1 and the scan of the keys bounds them, where the batching only adds
+  // work
+  constexpr int kWalk = std::is_same<Rows, BuiltRows>::value ? 1 : 4;
   __shared__ float acc[kStatsKeys][kStatsCols];
   const int tid = threadIdx.x;
   const int col = blockIdx.y * kStatsCols + tid;
@@ -147,6 +151,10 @@ template cudaError_t launch_stats<BuiltRows>(BuiltRows, const int32_t*,
                                              const int32_t*, const uint8_t*,
                                              int, int, int, float*, float*,
                                              cudaStream_t);
+template cudaError_t launch_stats<Bf16Rows>(Bf16Rows, const int32_t*,
+                                            const int32_t*, const uint8_t*,
+                                            int, int, int, float*, float*,
+                                            cudaStream_t);
 
 }  // namespace dpmm
 
@@ -165,6 +173,19 @@ extern "C" int dpmm_stats_from_labels(const float* rows, const int32_t* pairs,
                                          st));
   return static_cast<int>(launch_stats(CacheRows{rows, f}, labels, sub, valid,
                                        n, f, k, partial, stats, st));
+}
+
+// feat: the bf16 cache [n, f] ("bfloat16").
+extern "C" int dpmm_stats_from_labels_bf16(const void* feat,
+                                           const int32_t* labels,
+                                           const int32_t* sub,
+                                           const uint8_t* valid, int n, int f,
+                                           int k, float* partial,
+                                           float* stats, void* stream) {
+  using namespace dpmm;
+  return static_cast<int>(launch_stats(
+      Bf16Rows{static_cast<const __nv_bfloat16*>(feat), f}, labels, sub,
+      valid, n, f, k, partial, stats, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int dpmm_stats_chunk() { return dpmm::kStatsChunk; }

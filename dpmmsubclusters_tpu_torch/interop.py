@@ -1,15 +1,18 @@
-"""Carry cluster tables and sampler state from the JAX package to the port.
+"""Carry cluster tables, sampler state and feature caches from the JAX
+package to the port.
 
 The JAX package keeps the same table layout as dicts of arrays; pass them
 here as numpy arrays (``jax.device_get(state.table)``).  Its per-point
 streams are lane-blocked ``[N/128, 128]``; the port's are flat ``[N]``.
-Nothing here imports ``jax``.
+Its feature caches are padded to a multiple of 128 columns; the port's are
+not.  Nothing here imports ``jax``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .priors import GAUSSIAN
 from .sampler.driver import DPMMState
 
 
@@ -36,3 +39,31 @@ def state_from_jax(table_np, labels, sublabels, *, seed: int = 0,
     return DPMMState(table=table_from_jax(table_np, device),
                      labels=flat(labels), sublabels=flat(sublabels), gen=gen,
                      step=step)
+
+
+def _rows(a, f, device) -> torch.Tensor:
+    """One JAX row array (f32 or bf16, as numpy) as a tensor of its first
+    ``f`` columns; bf16 keeps its bits (numpy has no bf16 of its own: the
+    array's 2-byte elements are viewed as integers and back)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, np.float32))
+    if f is not None:
+        t = t[:, :f]
+    return t.contiguous().to(device)
+
+
+def points_from_jax(points, f=None, device="cpu"):
+    """A JAX points container (``engine.featurize``'s result, as numpy) as
+    the port's: a feature cache ``[N, F_pad]`` (f32 or bf16) becomes ``[N,
+    f]`` in the same dtype, and the hybrid dict ``{"feat", "raw"}`` becomes
+    ``{"feat": bf16 [N, F], "raw": f32 [N, D]}`` with F the Gaussian F of D
+    unless ``f`` is given.  ``f=None`` keeps every column of a cache."""
+    if isinstance(points, dict):
+        raw = _rows(points["raw"], None, device)
+        f = GAUSSIAN.feature_dim(raw.shape[1]) if f is None else f
+        return {"feat": _rows(points["feat"], f, device), "raw": raw}
+    return _rows(points, f, device)

@@ -34,9 +34,14 @@ _SIGNATURES = {
     # tile, n, f, k, labels, sub, partial, stats, stream
     "dpmm_fused_assign": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _P, _P, _P, _P, _P],
+    # feat, raw, pairs, d, then as dpmm_fused_assign from valid on
+    "dpmm_fused_assign_bf16": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # rows, pairs, d, labels, sub, valid, n, f, k, partial, stats, stream
     "dpmm_stats_from_labels": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                                _P],
+    # feat, labels, sub, valid, n, f, k, partial, stats, stream
+    "dpmm_stats_from_labels_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "dpmm_stats_chunk": [],
     "dpmm_error_string": [_I],
 }
@@ -57,12 +62,13 @@ def _nvcc() -> str:
     )
 
 
-def build(verbose: bool = False) -> pathlib.Path:
-    """Compile ``csrc/*.cu`` into ``_build/`` if needed; returns the path of
-    the shared library.  Raises ``RuntimeError`` with the compiler's output
-    when nvcc fails."""
+def build(verbose: bool = False, src_dir=CSRC) -> pathlib.Path:
+    """Compile ``src_dir/*.cu`` (the kernels of ``csrc/`` by default) into
+    ``_build/`` if needed; returns the path of the shared library.  Raises
+    ``RuntimeError`` with the compiler's output when nvcc fails."""
+    src_dir = pathlib.Path(src_dir)
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+    for p in sorted(src_dir.glob("*.cu")) + sorted(src_dir.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     lib = BUILD_DIR / f"libdpmm_kernels_{h.hexdigest()[:16]}.so"
@@ -74,7 +80,7 @@ def build(verbose: bool = False) -> pathlib.Path:
     # interrupted build never leaves a partial library under the final name
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         # one nvcc per source, all at once, then one link
-        srcs = sorted(CSRC.glob("*.cu"))
+        srcs = sorted(src_dir.glob("*.cu"))
         objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
         _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
               for obj, src in zip(objs, srcs)], verbose)

@@ -14,7 +14,13 @@ Both take flat ``int32 [N]`` label streams and, as the JAX functions do, a
 * ``"precomputed"``: the f32 feature cache ``[N, F]`` itself;
 * ``"gaussian"``: raw points ``[N, D]``, feature rows ``[1, x, triu(x x^T)]``
   (F = 1 + D + D(D+1)/2) built inside the kernel;
-* ``"multinomial"``: raw counts ``[N, D]``, feature rows ``[1, x]``.
+* ``"multinomial"``: raw counts ``[N, D]``, feature rows ``[1, x]``;
+* ``"bfloat16"``: the bf16 feature cache ``[N, F]``, upcast exactly (bf16 is
+  storage only; all arithmetic is f32);
+* ``"hybrid"`` (kernel A only): the bf16 cache feeds the ll product and the
+  statistics are the Gaussian rows built from the raw points ``x_raw [N,
+  D]`` passed beside it.  Kernel B on a hybrid container is the
+  ``"gaussian"`` variant on ``x_raw``.
 
 The tensor's device picks the path: a CUDA tensor launches the kernel (or
 raises), a CPU tensor runs the plain version.  Each wrapper counts its
@@ -38,7 +44,9 @@ _MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 _SUB_SALT = 0xA5A5A5A5
 
-VARIANTS = ("precomputed", "gaussian", "multinomial")
+VARIANTS = ("precomputed", "gaussian", "multinomial", "bfloat16", "hybrid")
+STATS_VARIANTS = ("precomputed", "gaussian", "multinomial", "bfloat16")
+_BF16 = ("bfloat16", "hybrid")
 _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
 
 
@@ -87,7 +95,7 @@ def gumbel_noise(s: torch.Tensor, rows_in_tile: torch.Tensor, width: int):
 # ---- feature rows ------------------------------------------------------------
 def feature_dim(family_name: str, d: int) -> int:
     """F of the rows a variant contracts (``d`` = the width of ``x``)."""
-    if family_name == "precomputed":
+    if family_name in ("precomputed",) + _BF16:
         return d
     return _FAMILIES[family_name].feature_dim(d)
 
@@ -111,7 +119,7 @@ def feature_rows(x, family_name: str) -> torch.Tensor:
     """The float32 feature rows of ``x`` under a variant (the family's
     ``features``; the cache's rows are themselves)."""
     x = x.to(torch.float32)
-    if family_name == "precomputed":
+    if family_name in ("precomputed",) + _BF16:
         return x
     return _FAMILIES[family_name].features(x)
 
@@ -138,7 +146,7 @@ def stats_from_labels_reference(x, labels, sub, valid, k: int,
 
 def fused_assign_reference(x, valid, phi_mat, log_w, seed, tile_off=0,
                            hard=False, *, tile: int = 512,
-                           family_name: str = "precomputed"):
+                           family_name: str = "precomputed", x_raw=None):
     """Plain version of kernel A.  Returns ``(labels int32 [N], sub int32
     [N], stats float32 [2K, F] rows [LEFT | RIGHT])``."""
     n = x.shape[0]
@@ -161,7 +169,12 @@ def fused_assign_reference(x, valid, phi_mat, log_w, seed, tile_off=0,
         side = delta + (g2[:, 1] - g2[:, 0]) + 1e-30 > 0.0
         labels[p0:p1] = lab.to(torch.int32)
         sub[p0:p1] = side.to(torch.int32)
-    stats = stats_from_labels_reference(x, labels, sub, valid, k, family_name)
+    if family_name == "hybrid":
+        stats = stats_from_labels_reference(x_raw, labels, sub, valid, k,
+                                            "gaussian")
+    else:
+        stats = stats_from_labels_reference(x, labels, sub, valid, k,
+                                            family_name)
     return labels, sub, stats
 
 
@@ -184,14 +197,24 @@ def _check_cuda(name: str, **tensors):
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def _rows_arg(x, family_name: str):
-    """(pairs tensor or None, d, F) for a variant's rows ``x``."""
-    if family_name not in VARIANTS:
-        raise ValueError(f"family_name must be one of {VARIANTS}; "
+def _check_variant(family_name: str, variants, x_raw=None) -> None:
+    if family_name not in variants:
+        raise ValueError(f"family_name must be one of {variants}; "
                          f"got {family_name!r}")
+    if (x_raw is not None) != (family_name == "hybrid"):
+        raise ValueError("x_raw (the raw points [N, D]) is given with, and "
+                         "only with, family_name='hybrid'")
+
+
+def _rows_arg(x, family_name: str):
+    """(pairs tensor or None, d, F) for a variant's rows ``x`` (for
+    "hybrid", ``x`` is its raw points)."""
     d = x.shape[1]
+    if family_name == "hybrid":
+        return feature_pairs("gaussian", d, x.device), d, feature_dim(
+            "gaussian", d)
     f = feature_dim(family_name, d)
-    if family_name == "precomputed":
+    if family_name in ("precomputed", "bfloat16"):
         return None, d, f
     return feature_pairs(family_name, d, x.device), d, f
 
@@ -213,24 +236,28 @@ def stats_from_labels(x, labels, sub, valid, k: int,
     ``x`` (see the module note on ``family_name``) by flat ``labels``/``sub``
     ``int32 [N]``, rows masked by ``valid bool [N]``.  Deterministic on the
     card (fixed-order partial sums)."""
+    _check_variant(family_name, STATS_VARIANTS)
     if x.device.type == "cpu":
         return stats_from_labels_reference(x, labels, sub, valid, k,
                                            family_name)
     n = x.shape[0]
     pairs, d, f = _rows_arg(x, family_name)
+    bf16 = family_name == "bfloat16"
     _check_cuda("stats_from_labels",
-                x=(x, torch.float32, (n, d)),
+                x=(x, torch.bfloat16 if bf16 else torch.float32, (n, d)),
                 labels=(labels, torch.int32, (n,)),
                 sub=(sub, torch.int32, (n,)),
                 valid=(valid, torch.bool, (n,)))
     stats = torch.empty((2 * k, f), dtype=torch.float32, device=x.device)
     partial = _stats_scratch(n, k, f, x.device)
     lib = _build.load()
-    rc = lib.dpmm_stats_from_labels(
-        x.data_ptr(), _ptr(pairs), d, labels.data_ptr(), sub.data_ptr(),
-        valid.data_ptr(), n, f, k, partial.data_ptr(), stats.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    tail = (labels.data_ptr(), sub.data_ptr(), valid.data_ptr(), n, f, k,
+            partial.data_ptr(), stats.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if bf16:
+        rc = lib.dpmm_stats_from_labels_bf16(x.data_ptr(), *tail)
+    else:
+        rc = lib.dpmm_stats_from_labels(x.data_ptr(), _ptr(pairs), d, *tail)
     _build.check(rc, "stats_from_labels")
     stats_from_labels.launches[family_name] += 1
     return stats
@@ -238,11 +265,14 @@ def stats_from_labels(x, labels, sub, valid, k: int,
 
 def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
                  hard: bool = False, *, tile: int = 512,
-                 family_name: str = "precomputed"):
+                 family_name: str = "precomputed", x_raw=None):
     """One sweep's assignment + statistics pass.
 
-    x       [N, F] float32 feature cache ("precomputed") or [N, D] raw
-            points ("gaussian", "multinomial"; rows built in the kernel)
+    x       [N, F] float32 feature cache ("precomputed"), [N, D] raw
+            points ("gaussian", "multinomial"; rows built in the kernel) or
+            [N, F] bfloat16 feature cache ("bfloat16", "hybrid")
+    x_raw   float32 [N, D] raw points of a "hybrid" container (its
+            statistics rows), else None
     valid   bool [N]; invalid rows get labels but add no statistics
     phi_mat [F, 2K] float32, columns [whole K | delta K] (assign._delta_phi)
     log_w   [K] float32 mixture log-weights (-inf inactive); any K
@@ -255,19 +285,26 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     with stats rows ``[LEFT K | RIGHT K]``.  The ll product is exact float32
     whatever ``ll_precision`` the config names.
     """
+    _check_variant(family_name, VARIANTS, x_raw)
     if x.device.type == "cpu":
         if torch.is_tensor(seed):
             seed = int(seed.reshape(-1)[0])
         return fused_assign_reference(x, valid, phi_mat, log_w, seed,
                                       tile_off, hard, tile=tile,
-                                      family_name=family_name)
+                                      family_name=family_name, x_raw=x_raw)
     n = x.shape[0]
     k = log_w.shape[0]
-    pairs, d, f = _rows_arg(x, family_name)
+    hybrid = family_name == "hybrid"
+    pairs, d, f = _rows_arg(x_raw if hybrid else x, family_name)
     if not torch.is_tensor(seed):
         seed = torch.tensor([int(seed)], dtype=torch.int32, device=x.device)
-    _check_cuda("fused_assign",
-                x=(x, torch.float32, (n, d)),
+    rows = {"x": (x, torch.float32, (n, d))}
+    if family_name in _BF16:
+        # the bf16 cache [N, F]; for "hybrid" F is the Gaussian F of x_raw
+        rows = {"x": (x, torch.bfloat16, (n, f))}
+        if hybrid:
+            rows["x_raw"] = (x_raw, torch.float32, (n, d))
+    _check_cuda("fused_assign", **rows,
                 valid=(valid, torch.bool, (n,)),
                 phi_mat=(phi_mat, torch.float32, (f, 2 * k)),
                 log_w=(log_w, torch.float32, (k,)),
@@ -280,13 +317,16 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     stats = torch.empty((2 * k, f), dtype=torch.float32, device=x.device)
     partial = _stats_scratch(n, k, f, x.device)
     lib = _build.load()
-    rc = lib.dpmm_fused_assign(
-        x.data_ptr(), _ptr(pairs), d, valid.data_ptr(), phi_mat.data_ptr(),
-        delta_t.data_ptr(), log_w.data_ptr(), seed.data_ptr(), int(tile_off),
-        int(bool(hard)), int(tile), n, f, k, labels.data_ptr(),
-        sub.data_ptr(), partial.data_ptr(), stats.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    tail = (valid.data_ptr(), phi_mat.data_ptr(), delta_t.data_ptr(),
+            log_w.data_ptr(), seed.data_ptr(), int(tile_off), int(bool(hard)),
+            int(tile), n, f, k, labels.data_ptr(), sub.data_ptr(),
+            partial.data_ptr(), stats.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if family_name in _BF16:
+        rc = lib.dpmm_fused_assign_bf16(x.data_ptr(), _ptr(x_raw),
+                                        _ptr(pairs), d, *tail)
+    else:
+        rc = lib.dpmm_fused_assign(x.data_ptr(), _ptr(pairs), d, *tail)
     _build.check(rc, "fused_assign")
     fused_assign.launches[family_name] += 1
     return labels, sub, stats
@@ -294,8 +334,8 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    for fn in (fused_assign, stats_from_labels):
-        fn.launches = dict.fromkeys(VARIANTS, 0)
+    fused_assign.launches = dict.fromkeys(VARIANTS, 0)
+    stats_from_labels.launches = dict.fromkeys(STATS_VARIANTS, 0)
 
 
 reset_launches()

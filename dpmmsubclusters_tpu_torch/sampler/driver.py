@@ -9,6 +9,14 @@ time and pick the next table-capacity tier.
 Scheduling follows ``run_model`` (src/dp-parallel-sampling.jl:354-361):
 ``final`` = iter >= iters - argmax_sample_stop (argmax labels) and
 ``no_more_splits`` = iter >= iters - split_stop, or K >= max_clusters.
+
+The bf16 feature caches (``feature_dtype`` "bfloat16" and "hybrid") are
+built with stochastic rounding, as the JAX package builds them, but their
+16 dither bits are the port's counter hash of (fit seed, global row,
+column) (:func:`stochastic_bf16`), not JAX's threefry bits, which cannot be
+reproduced without JAX; a torch generator's stream would depend on the
+chunking.  So the two packages round the same values up or down with the
+same probabilities, but not the same values.
 """
 from __future__ import annotations
 
@@ -20,12 +28,47 @@ import numpy as np
 import torch
 
 from ..config import DPMMConfig
+from ..ops import sweep_kernels
 from . import assign as assign_mod
 from . import moves as moves_mod
 from .smart import smart_sublabels
 from .sweep import make_smart_pass, make_sweep
 from .table import (active_count, compute_posteriors, data_dim, init_table,
                     retier)
+
+
+FEATURIZE_ROWS = 1 << 16   # rows per chunk of a bf16 cache build
+_DITHER_SALT = 0x5EED      # the JAX package's dither key (driver.py:429)
+
+
+def stochastic_bf16(feat: torch.Tensor, seed: int, row0: int = 0):
+    """f32 rows [R, F] (global rows ``row0 ..``) as bf16 with stochastic
+    rounding: 16 dither bits, the counter hash of (seed, global row,
+    column), are added below the bf16 mantissa, then the low 16 bits are
+    dropped.  Rounds up with probability (distance to the lower neighbour)
+    / ulp, so the stored value is unbiased; bf16 values stay exact."""
+    r, f = feat.shape
+    dev = feat.device
+    rows = torch.arange(row0, row0 + r, dtype=torch.int64, device=dev)
+    s = sweep_kernels.tile_seeds(int(seed) ^ _DITHER_SALT, rows, 1)
+    col = torch.arange(f, dtype=torch.int64, device=dev)
+    dither = sweep_kernels.hash_bits(s[:, None], col[None, :]) & 0xFFFF
+    bits = feat.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    top = ((bits + dither) >> 16) & 0xFFFF            # uint32 add, truncate
+    return (top - ((top >> 15) << 16)).to(torch.int16).view(torch.bfloat16)
+
+
+def bf16_features(family, points: torch.Tensor, seed: int) -> torch.Tensor:
+    """The bf16 feature cache [N, F] of ``points``, built FEATURIZE_ROWS
+    rows at a time (a whole f32 cache of 10M x 64-d points would be 86 GB);
+    the bits do not depend on the chunk size."""
+    n, d = points.shape
+    out = torch.empty((n, family.feature_dim(d)), dtype=torch.bfloat16,
+                      device=points.device)
+    for p0 in range(0, n, FEATURIZE_ROWS):
+        p1 = min(n, p0 + FEATURIZE_ROWS)
+        out[p0:p1] = stochastic_bf16(family.features(points[p0:p1]), seed, p0)
+    return out
 
 
 def tier_sequence(k_max: int) -> list:
@@ -104,13 +147,29 @@ class DPMMEngine:
                            device=self.device)
         return points, valid, float(points.shape[0])
 
-    def featurize(self, points: torch.Tensor) -> torch.Tensor:
-        """The f32 feature cache [N, F] (for the Gaussian family
-        [1, x, triu(x x^T)]), built once per fit when
-        ``cfg.precompute_features``; every kernel then streams its rows (F is
-        not padded).  Without it the kernels build the rows from the raw
-        points."""
-        return self.family.features(points)
+    def featurize(self, points: torch.Tensor, seed: int = 0):
+        """The feature cache (for the Gaussian family rows [1, x, triu(x
+        x^T)]), built once per fit when ``cfg.precompute_features``; every
+        kernel then streams its rows (F is not padded).  Without it the
+        kernels build the rows from the raw points.  By ``feature_dtype``:
+
+        * "float32": the f32 cache [N, F];
+        * "bfloat16": the bf16 cache [N, F] (:func:`bf16_features`; ``seed``
+          keys its rounding), which feeds the ll product and the statistics;
+        * "hybrid" (Gaussian only): ``{"feat": bf16 [N, F], "raw":
+          points}``: the bf16 cache feeds only the ll product, and the
+          statistics are built in f32 from the raw points, held as they
+          are (not copied)."""
+        dt = self.cfg.feature_dtype
+        if dt == "float32":
+            return self.family.features(points)
+        if dt == "hybrid" and self.family.name != "gaussian":
+            raise ValueError(
+                "feature_dtype='hybrid' requires the gaussian family (its "
+                "statistics are the Gaussian rows built from the raw "
+                f"points); got family {self.family.name!r}")
+        feat = bf16_features(self.family, points, seed)
+        return {"feat": feat, "raw": points} if dt == "hybrid" else feat
 
     # -- state --------------------------------------------------------------
     def _stats(self, points, valid, labels, sublabels, k: int):
@@ -126,7 +185,7 @@ class DPMMEngine:
         ``init_model_from_data`` + ``init_first_clusters!``,
         src/dp-parallel-sampling.jl:36-78)."""
         cfg, family = self.cfg, self.family
-        n = points.shape[0]
+        n = valid.shape[0]
         d = data_dim(prior)
         offset = 1 if cfg.outlier_mod > 0 else 0
         labels = torch.randint(offset, offset + cfg.init_clusters, (n,),

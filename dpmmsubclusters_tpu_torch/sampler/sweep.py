@@ -106,7 +106,7 @@ def make_sweep(family, cfg):
         # C + D + E: fused assignment & statistics (kernel A); the seed
         # stays on the device so drawing it needs no sync
         seed = torch.randint(0, 2**31 - 1, (1,), generator=gen,
-                             device=points.device, dtype=torch.int32)
+                             device=valid.device, dtype=torch.int32)
         labels, sublabels, stats_lr = assign_mod.assign_and_stats(
             points, valid, table["params"]["phi"], table["log_weights"],
             torch.log(torch.clamp(table["lr_weights"], min=1e-37)),
@@ -147,7 +147,7 @@ def make_sweep(family, cfg):
             "k": active_count(table),
             "log_posterior": (
                 log_posterior(family, table, alpha, float(n_total))
-                if cfg.track_posterior else torch.zeros((), device=points.device)
+                if cfg.track_posterior else torch.zeros((), device=valid.device)
             ),
         }
         return table, labels, sublabels, metrics

@@ -100,15 +100,18 @@ def test_fit_runs_outlier_tiers_and_exact_stats():
 
 
 def test_fit_refusals():
+    """No card: ``device="cuda"`` raises.  Checkpoints are not ported yet;
+    both bf16 cache layouts are, and fit takes them."""
     x, _ = four_corners(16)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tdpmm.fit(x, iters=1)
-    for kw in ({"feature_dtype": "bfloat16"},
-               {"feature_dtype": "hybrid"},
-               {"enable_saving": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdpmm.fit(x, iters=1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdpmm.fit(x, iters=1, device="cpu", enable_saving=True)
+    for dt in ("bfloat16", "hybrid"):
+        res = tdpmm.fit(x, iters=1, device="cpu", verbose=False,
+                        feature_dtype=dt)
+        assert res.model.cfg.feature_dtype == dt and res.k >= 1
 
 
 class TestFourCornersWithoutCache(TestFourCorners):

@@ -327,7 +327,7 @@ def test_wrappers_refuse_unknown_variants():
     lab = torch.empty(128, dtype=torch.int32, device="meta")
     valid = torch.empty(128, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="family_name"):
-        sk.stats_from_labels(meta, lab, lab, valid, 4, "hybrid")
+        sk.stats_from_labels(meta, lab, lab, valid, 4, "bogus")
     with pytest.raises(ValueError, match="expected cuda"):
         sk.fused_assign(meta, valid, torch.empty((15, 8), device="meta"),
                         torch.empty(4, device="meta"), 1,
