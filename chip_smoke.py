@@ -3,8 +3,13 @@ NVIDIA GPU: builds the hand-written kernels from csrc/, checks each kernel
 and variant against its plain PyTorch version at the shapes the fits give it
 (and the raw-point and bf16 variants against the f32 cache variant bit for
 bit), runs kernel E's build gate (a well-formed kernel builds and runs,
-its ill-formed twin makes the build raise), then drives ``fit`` through
-every path of the port:
+its ill-formed twin makes the build raise), checks the kernel studies'
+kernels at their full sizes (kernel C's column sums and kernel A's 32-,
+64- and 128-point blocks at 1M x 640, K=128, whose labels must not depend
+on the block; each of kernel D's 8 stage sets at 1M x 561, K=128), runs
+the port's bench entry points (the tile study, the ablation, and the
+flagship bench, which must reach K=64 and whose one profiled sweep must
+name kernel A), then drives ``fit`` through every path of the port:
 
 * Gaussian with the f32 feature cache: the 4-corner gate, the 200k x 32-d
   recovery gate and the 1M x 32-d flagship;
@@ -49,11 +54,17 @@ REPLACES = {
     "fused_assign": "dpmmsubclusters_tpu/ops/pallas_sweep.py:518",
     "stats_from_labels": "dpmmsubclusters_tpu/ops/pallas_sweep.py:439",
     "build_gate": "tests/test_mosaic_compile.py:88",
+    "column_sum": "benchmarks/kernel_tile_study.py:58",
+    "tile_study_full": "benchmarks/kernel_tile_study.py:58",
+    "kernel_ablate": "benchmarks/kernel_ablate.py:150",
 }
 SOURCES = {
     "fused_assign": "dpmmsubclusters_tpu_torch/csrc/fused_assign.cu",
     "stats_from_labels": "dpmmsubclusters_tpu_torch/csrc/stats_from_labels.cu",
     "build_gate": "chip_smoke.py",      # GATE_KERNEL, built by _build.py
+    "column_sum": "dpmmsubclusters_tpu_torch/csrc/column_sum.cu",
+    "tile_study_full": "dpmmsubclusters_tpu_torch/csrc/fused_assign.cu",
+    "kernel_ablate": "dpmmsubclusters_tpu_torch/csrc/kernel_ablate.cu",
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores (the kernels use none)
@@ -75,17 +86,9 @@ def nvidia_smi() -> str:
 
 def time_ms(torch, fn, reps: int = 10) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    from dpmmsubclusters_tpu_torch.utils.profiling import median_ms
+
+    return median_ms(fn, "cuda", reps)
 
 
 def separated_data(n: int, d: int, k_true: int, seed: int = 0):
@@ -515,6 +518,255 @@ def check_kernels(torch, dev, smi: str) -> dict:
     return out
 
 
+def close_sums(torch, got, want, abs_sum, rtol: float = 1e-5) -> float:
+    """Max |got - want| for float32 sums taken in two orders; raises unless
+    |got - want| <= rtol * (the sum of the terms' magnitudes) + 1e-6."""
+    err = (got - want).abs()
+    bad = err > rtol * abs_sum + 1e-6
+    if bool(bad.any()):
+        raise AssertionError(f"{int(bad.sum())} sums outside rtol={rtol} of "
+                             f"their terms' magnitudes; max abs err "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def check_column_sum(torch, stk, x, smi: str) -> dict:
+    """Kernel C (the tile study's dma_only mode) against its plain version
+    and torch.sum on the study's x [1M, 640]."""
+    two = torch.empty((2, x.shape[1]), device=x.device)
+    got = stk.column_sum(x, two.clone())
+    err = close_sums(torch, got, stk.column_sum_reference(x, two),
+                     x.abs().sum(0))
+    assert torch.equal(got[:1], stk.column_sum(x)), \
+        "column_sum is not deterministic"
+    ms = time_ms(torch, lambda: stk.column_sum(x))
+    plain_ms = time_ms(torch, lambda: stk.column_sum_reference(x))
+    library_ms = time_ms(torch, lambda: torch.sum(x, 0))
+    n, f = x.shape
+    b = least_time(4 * n * f + 4 * f, n * f)
+    log(f"kernel C column_sum: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.sum {library_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']}) (N={n}, F={f}; {smi}); max abs err {err:.3g}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
+                library_ms=library_ms)
+
+
+def check_tile_study(torch, sk, kts, x, valid, phi, log_w, smi: str,
+                     out: dict) -> None:
+    """The tile study's full mode (kernel A "precomputed" at each hash tile
+    and block size): at every tile the 32-, 64- and 128-point blocks give
+    the same labels, sub-labels and statistics (the hash does not depend on
+    the block); at tile 512 each block size against the plain version."""
+    def run(tile, cta):
+        return kts.variant(SEED, x, valid, phi, log_w, tile=tile,
+                           cta_points=cta)
+
+    for tile in kts.TILES:
+        runs = [run(tile, c) for c in sk.CTA_POINTS]
+        for cta, other in zip(sk.CTA_POINTS[1:], runs[1:]):
+            for what, a, b in zip(("labels", "sub-labels", "stats"),
+                                  runs[0], other):
+                assert torch.equal(a, b), (f"tile study: {what} at "
+                                           f"{cta} points a block differ "
+                                           f"from 32 (tile {tile})")
+    log(f"tile study: labels, sub-labels and statistics equal across "
+        f"blocks of {sk.CTA_POINTS} points at hash tiles {kts.TILES}")
+    n, f = x.shape
+    k = log_w.shape[0]
+    lp, sp, _ = sk.fused_assign_reference(x, valid, phi, log_w, SEED, 0,
+                                          False, tile=512)
+    plain_ms = time_ms(torch, lambda: sk.fused_assign_reference(
+        x, valid, phi, log_w, SEED, 0, False, tile=512))
+    n_valid = int(valid.sum())
+    b = least_time(4 * n * f + n + 4 * (f * 2 * k + k) + 8 * n
+                   + 4 * 2 * k * f, 2.0 * n * f * (k + 1) + n_valid * f)
+    for cta in sk.CTA_POINTS:
+        lk, sk_, stk_ = run(512, cta)
+        agree_l = float((lk == lp).float().mean())
+        agree_s = float((sk_ == sp).float().mean())
+        assert agree_l >= 0.999 and agree_s >= 0.999, (cta, agree_l, agree_s)
+        err = close(torch, stk_, sk.stats_from_labels_reference(
+            x, lk, sk_, valid, k), 1e-4, 1e-3)
+        ms = time_ms(torch, lambda: run(512, cta))
+        log(f"tile study full, {cta} points a block: {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_by']}); labels agree {agree_l:.6f}, sub-labels "
+            f"{agree_s:.6f} (N={n}, F={f}, K={k}, tile 512; {smi}); max abs "
+            f"err {err:.3g}")
+        out[f"tile_study_full[cta={cta}]"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, library_ms=None)
+
+
+def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
+    """Kernel D, each stage set of the ablation at its full size (1M x
+    F=561, K=128, tile 512) against its plain version.  The statistics of a
+    set are held against the plain statistics at the kernel's own labels:
+    kernel A's hard labels ("+stats"; the same FMA chain on the same whole
+    columns gives the same bits), its soft labels ("+gumbel"; the same
+    noise), and the full set's labels and sides (which also equal kernel
+    A's soft labels: a twin gate)."""
+    n, k, tile = N_CHECK, K_MAX_FLAG, kab.TILE
+    f = 1 + D_FLAG + D_FLAG * (D_FLAG + 1) // 2
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((n, f), generator=gen, device=dev)
+    phi = torch.randn((f, 3 * k), generator=gen, device=dev)
+    log_w = torch.log(torch.full((k,), 1.0 / k, device=dev))
+    loglrw = torch.log(torch.full((2, k), 0.5, device=dev))
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[-1000:] = False
+    args = (x, valid, phi, log_w, loglrw, SEED)   # kernel_ablate's order
+
+    phi_a = torch.cat([phi[:, :k], phi[:, 2 * k:] - phi[:, k:2 * k]], 1)
+    hard = sk.fused_assign(x, valid, phi_a, log_w, SEED, 0, True)[0]
+    soft = sk.fused_assign(x, valid, phi_a, log_w, SEED, 0, False)[0]
+    full = stk.kernel_ablate(*args, tile=tile, stages=kab.VARIANTS[-1][1])
+    assert torch.equal(full[0], soft), "kernel D's labels differ from A's"
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    keeps = {"stats": (hard, zeros), "stats+gumbel": (soft, zeros),
+             "stats+gumbel+sub": full[:2],
+             "stats+gumbel+sub+write": full[:2]}
+    xabs = x.abs().sum(0)
+    for name, stages in kab.VARIANTS:
+        key = stk.stage_key(stages)
+
+        def run(stages=stages):       # the study's entry, seed first
+            return kab.variant(SEED, *args[:-1], tile=tile, stages=stages)
+
+        def plain(stages=stages):
+            return stk.kernel_ablate_reference(*args, tile=tile,
+                                               stages=stages)
+
+        (lk, sk_, stk_), (lp, sp, stp) = run(), plain()
+        if "write" in stages:
+            agree_l = float((lk == lp).float().mean())
+            agree_s = float((sk_ == sp).float().mean())
+            assert agree_l >= 0.999 and agree_s >= 0.999, (name, agree_l,
+                                                           agree_s)
+        else:
+            assert not lk.any() and not sk_.any(), f"{name}: labels written"
+        if key in keeps:
+            lab, side = keeps[key]
+            err = close(torch, stk_, sk.stats_from_labels_reference(
+                x, lab, side, valid, k), 1e-4, 1e-3)
+        elif key == "dot_only":
+            ll_abs = torch.zeros(3 * k, device=dev)
+            for p0 in range(0, n, 1 << 16):
+                ll_abs += (x[p0:p0 + (1 << 16)] @ phi).abs().sum(0)
+            err = close_sums(torch, stk_[0, :3 * k], stp[0, :3 * k], ll_abs)
+            assert not stk_[1:].any() and not stk_[0, 3 * k:].any()
+        elif key in ("dma_only", "stats_raw"):
+            rows = 1 if key == "dma_only" else 2 * k
+            err = close_sums(torch, stk_[:rows], stp[:rows], xabs)
+            assert not stk_[rows:].any()
+        else:                  # "none": every output zero
+            assert not stk_.any() and not stp.any()
+            err = 0.0
+        ms = time_ms(torch, run)
+        plain_ms = time_ms(torch, plain)
+        # the bytes the set must read and every output written once; the
+        # product's columns it needs (2 flop a term) and one add a sum
+        nbytes = 4 * n * f + 8 * n + 4 * 2 * k * f
+        flop = 2.0 * n * f * k
+        if key == "dma_only":
+            flop = n * f
+        elif key == "dot_only":
+            nbytes += 4 * f * 3 * k
+            flop = 2.0 * n * f * 3 * k
+        else:
+            nbytes += 4 * (f * 3 * k + 3 * k)
+            if "sub" in stages:
+                flop += 2.0 * n * f * 2
+            if "stats" in stages:
+                nbytes += n
+                flop += int(valid.sum()) * f
+            elif "stats_raw" in stages:
+                flop += n * f
+        b = least_time(nbytes, flop)
+        log(f"kernel D {name} ({key}): {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}) (N={n}, "
+            f"F={f}, K={k}, tile {tile}; {smi}); max abs err {err:.3g}")
+        out[f"kernel_ablate[{key}]"] = dict(max_abs_err=err, ms=ms,
+                                            plain_ms=plain_ms, **b,
+                                            library_ms=None)
+    log("kernel D: the full set's labels equal kernel A's soft labels bit "
+        "for bit")
+
+
+def check_study_kernels(torch, dev, smi: str) -> dict:
+    """Kernels C and D and the tile study's kernel A blocks against their
+    plain versions at the studies' full sizes."""
+    from dpmmsubclusters_tpu_torch.benchmarks import kernel_ablate as kab
+    from dpmmsubclusters_tpu_torch.benchmarks import kernel_tile_study as kts
+    from dpmmsubclusters_tpu_torch.ops import study_kernels as stk
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    out = {}
+    x, valid, phi, log_w = kts.inputs(N_CHECK, D_FLAG, K_MAX_FLAG, dev)
+    valid[-1000:] = False
+    out["column_sum[dma_only]"] = check_column_sum(torch, stk, x, smi)
+    check_tile_study(torch, sk, kts, x, valid, phi, log_w, smi, out)
+    del x, valid, phi, log_w
+    check_ablate(torch, sk, stk, kab, dev, smi, out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_studies(torch, smi: str) -> dict:
+    """The port's bench entry points, each with every launch count set to 0
+    just before it and read just after: the tile study and the ablation at
+    their full sizes, then the flagship bench, whose one profiled sweep
+    (profiling.trace) must name kernel A.  Returns the launch counts by
+    path and the bench's line."""
+    from dpmmsubclusters_tpu_torch.benchmarks import bench
+    from dpmmsubclusters_tpu_torch.benchmarks import kernel_ablate as kab
+    from dpmmsubclusters_tpu_torch.benchmarks import kernel_tile_study as kts
+    from dpmmsubclusters_tpu_torch.ops import _build
+    from dpmmsubclusters_tpu_torch.ops import study_kernels as stk
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    def reset():
+        sk.reset_launches()
+        stk.reset_launches()
+
+    out = {}
+    reset()
+    t0 = time.perf_counter()
+    kts.main([])
+    out["tile_study"] = dict(column_sum=stk.column_sum.launches,
+                             fused_assign=dict(sk.fused_assign.launches))
+    log(f"tile study ran in {time.perf_counter() - t0:.1f} s, launches "
+        f"{out['tile_study']}")
+    free(torch)
+    reset()
+    t0 = time.perf_counter()
+    kab.main([])
+    out["ablate"] = dict(stk.kernel_ablate.launches)
+    log(f"ablation ran in {time.perf_counter() - t0:.1f} s, launches "
+        f"{out['ablate']}")
+    free(torch)
+    reset()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        line = bench.main(["--trace", tmp])
+        secs = time.perf_counter() - t0
+        traces = list(pathlib.Path(tmp).glob("trace_*.json"))
+        assert len(traces) == 1, traces
+        text = traces[0].read_text()
+    out["bench"] = dict(fused_assign=dict(sk.fused_assign.launches),
+                        stats_from_labels=dict(sk.stats_from_labels.launches))
+    assert line["k"] == K_TRUE_FLAG, line
+    assert out["bench"]["fused_assign"]["precomputed"] > 0, out["bench"]
+    assert "assign_kernel" in text, "the bench's trace names no kernel A"
+    log(f"bench: {line['ms_per_sweep']:.3f} ms/sweep, {line['value']} "
+        f"points/s, K={line['k']} in {secs:.1f} s ({smi}); its profiled "
+        f"sweep names kernel A ({text.count('assign_kernel')} mentions); "
+        f"launches {out['bench']}")
+    out["bench_line"] = line
+    free(torch)
+    return out
+
+
 def run_fit(torch, name: str, x, gt, variant, **kw) -> dict:
     """One ``fit`` on the card, ground truth given (block-boundary NMI in
     the history), with every launch count set to 0 just before; asserts
@@ -654,7 +906,10 @@ def main() -> int:
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
     kernels = check_kernels(torch, dev, smi)
     kernels["build_gate"] = build_gate(torch, _build, smi)
+    kernels.update(check_study_kernels(torch, dev, smi))
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
+    studies = run_studies(torch, smi)
+    log(f"studies and bench done at {time.perf_counter() - t_start:.1f} s")
     launches = {}      # the main path of each variant: launch counts
 
     # 4-corner golden gate (tests/test_fit_e2e.py::TestFourCorners), with
@@ -778,6 +1033,25 @@ def main() -> int:
         "name": "build_gate[lane_iota]", "route": "cuda",
         "source": SOURCES["build_gate"], "replaces": REPLACES["build_gate"],
         **kernels["build_gate"]})
+    # kernels C and D, and kernel A's study blocks: launches on their
+    # study's path
+    tile = studies["tile_study"]
+    study_rows = [("column_sum[dma_only]", "column_sum",
+                   "dma_only mode", tile["column_sum"])]
+    for cta in (32, 64, 128):
+        variant = "precomputed" + ("" if cta == 64 else f" cta={cta}")
+        study_rows.append((f"tile_study_full[cta={cta}]", "tile_study_full",
+                           f"full modes; kernel A precomputed, {cta} "
+                           f"points a block", tile["fused_assign"][variant]))
+    for key, n_launch in studies["ablate"].items():
+        study_rows.append((f"kernel_ablate[{key}]", "kernel_ablate",
+                           f"stage set {key}", n_launch))
+    for name, kernel, what, n_launch in study_rows:
+        assert n_launch > 0, (name, "not launched on its study's path")
+        report["kernels"].append({
+            "name": name, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": f"{REPLACES[kernel]} ({what})", "launches": n_launch,
+            **kernels[name]})
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(report))

@@ -116,4 +116,15 @@ cudaError_t launch_stats(Rows rows, const int32_t* labels, const int32_t* sub,
                          const uint8_t* valid, int n, int f, int k,
                          float* partial, float* stats, cudaStream_t stream);
 
+// column_sum.cu.  out rows [0, out_rows) (leading dimension ld_out) = the
+// sums over r of partial [rows, m], in a fixed order.
+cudaError_t launch_reduce_rows(const float* partial, int rows, int m,
+                               float* out, int out_rows, int ld_out,
+                               cudaStream_t stream);
+// out [out_rows, f] = the column sums of x [n, f] in every row; ``partial``
+// is [ceil(n / column_chunk()), f] scratch.
+cudaError_t launch_column_sum(const float* x, int n, int f, float* partial,
+                              float* out, int out_rows, cudaStream_t stream);
+int column_chunk();
+
 }  // namespace dpmm

@@ -40,14 +40,11 @@
 // owns 64 points.  Each warp owns 8 points and each lane the columns
 // lane + 32c, so a warp holds whole rows of ll in registers: the Gumbel
 // argmax is a warp shuffle reduction and ll never touches device memory.
-// The product is a register-blocked SGEMM over 16-deep slices of F staged in
-// shared memory, two stages so the next slice loads while this one is
-// multiplied: phi slices and f32 cache rows by asynchronous copies
-// (cp.async, 4 bytes each); built rows, read from x (L1 hits: a block's 64
-// points are 16 KB at D=64), and bf16 cache rows (2-byte loads, which
-// cp.async cannot make) go into registers before the multiply and are
-// converted and stored after it, so F needs no padding.  Feature
-// values are warp-broadcast reads, phi reads are conflict-free across lanes.
+// The product is the register-blocked SGEMM of row_products.cuh (built rows
+// read x from L1: a block's 64 points are 16 KB at D=64).  The block size
+// is a template parameter of the one-pass kernel; the fits use 8 warps, and
+// the tile study (benchmarks/kernel_tile_study.py) also times 4 and 16 warps
+// (32 and 128 points a block) on the f32 cache.
 // Up to 2K = 256 columns (K <= 128) one pass covers [whole | delta] and the
 // delta column K + label is one shuffle away.  Above, for any K, the whole
 // columns go in passes of 256 with a running Gumbel argmax (the noise of
@@ -56,144 +53,17 @@
 // is an F-long dot with the row label of ``delta_t`` [K, F] (phi's delta
 // columns, transposed by the wrapper so the read is coalesced), split over
 // the lanes and summed by a butterfly.
-#include "dpmm_kernels.cuh"
+#include "row_products.cuh"
 
 #include <cmath>
-#include <type_traits>
 
 namespace dpmm {
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kPointsPerWarp = 8;
+constexpr int kWarps = 8;  // the main path's block: 8 warps, 64 points
 constexpr int kBlockPoints = kWarps * kPointsPerWarp;  // 64
-constexpr int kDepth = 16;                             // F slice per stage
 constexpr int kThreads = kWarps * 32;
-constexpr int kAPad = 4;  // keeps the float4 reads aligned, spreads banks
-constexpr int kRowsPerThread = kBlockPoints * kDepth / kThreads;  // 4
 constexpr int kWideCPT = 8;  // columns per lane of one pass: 256 per warp
-
-template <int CPT>
-struct Stage {
-  float a[2][kDepth][kBlockPoints + kAPad];  // rows, transposed
-  float b[2][kDepth][32 * CPT];              // phi columns
-};
-
-// 4-byte asynchronous global -> shared copy; ``ok`` false zero-fills (the
-// source is then not read).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ bool better(float v, int j, float bv, int bj) {
-  return v > bv || (v == bv && j < bj);
-}
-
-// acc[r][c] = row(row0 + 8 warp + r) . phi[:, col0 + lane + 32 c] for the
-// phi columns col0 + [0, ncols) (leading dimension ldp); other columns and
-// rows past n give 0.  Every thread of the block calls it.
-template <int CPT, class Rows>
-__device__ __forceinline__ void row_products(
-    const Rows& rows, const float* __restrict__ phi, int ldp, int col0,
-    int ncols, int row0, int n, int f, Stage<CPT>& sm,
-    float (&acc)[kPointsPerWarp][CPT]) {
-  constexpr int kCols = 32 * CPT;
-  constexpr bool kCache = std::is_same<Rows, CacheRows>::value;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int kk = tid % kDepth;
-  float built[kRowsPerThread];  // built rows of the next slice, in flight
-
-  auto load_phi = [&](int stage, int k0) {
-#pragma unroll
-    for (int idx = tid; idx < kDepth * kCols; idx += kThreads) {
-      const int kr = idx / kCols;
-      const int c = idx % kCols;
-      const int fr = k0 + kr;
-      const bool ok = fr < f && c < ncols;
-      cp_async4(&sm.b[stage][kr][c],
-                ok ? phi + static_cast<size_t>(fr) * ldp + col0 + c : phi,
-                ok);
-    }
-  };
-  // rows [row0, row0 + 64) x features [k0, k0 + 16): f32 cache rows copy
-  // straight into the stage; built and bf16 rows are read into ``built``
-  // and stored by store_built once the stage is free
-  auto load_rows = [&](int stage, int k0) {
-    const int fc = k0 + kk;
-    if constexpr (kCache) {
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const int r = tid / kDepth + i * (kThreads / kDepth);
-        const int g = row0 + r;
-        const bool ok = g < n && fc < f;
-        cp_async4(&sm.a[stage][kk][r],
-                  ok ? rows.feat + static_cast<size_t>(g) * f + fc
-                     : rows.feat,
-                  ok);
-      }
-    } else {
-      const typename Rows::Col c = rows.col(fc < f ? fc : 0);
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const int g = row0 + tid / kDepth + i * (kThreads / kDepth);
-        built[i] = (g < n && fc < f) ? rows.at(c, g) : 0.0f;
-      }
-    }
-  };
-  auto store_built = [&](int stage) {
-    if constexpr (!kCache) {
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        sm.a[stage][kk][tid / kDepth + i * (kThreads / kDepth)] = built[i];
-    }
-  };
-
-#pragma unroll
-  for (int r = 0; r < kPointsPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.0f;
-
-  const int slices = (f + kDepth - 1) / kDepth;
-  __syncthreads();  // an earlier pass may still read the stages
-  load_phi(0, 0);
-  load_rows(0, 0);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  store_built(0);
-  for (int t = 0; t < slices; ++t) {
-    const int cur = t & 1;
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // slice t is visible; everyone is done with slice t-1
-    const bool next = t + 1 < slices;
-    if (next) {
-      load_phi(cur ^ 1, (t + 1) * kDepth);
-      load_rows(cur ^ 1, (t + 1) * kDepth);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-    }
-#pragma unroll
-    for (int k2 = 0; k2 < kDepth; ++k2) {
-      const float4 a0 = *reinterpret_cast<const float4*>(
-          &sm.a[cur][k2][warp * kPointsPerWarp]);
-      const float4 a1 = *reinterpret_cast<const float4*>(
-          &sm.a[cur][k2][warp * kPointsPerWarp + 4]);
-      const float a[kPointsPerWarp] = {a0.x, a0.y, a0.z, a0.w,
-                                       a1.x, a1.y, a1.z, a1.w};
-      float b[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) b[c] = sm.b[cur][k2][lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kPointsPerWarp; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-    if (next) store_built(cur ^ 1);
-  }
-}
 
 // Folds this lane's whole columns j = j0 + lane + 32 c < k of one row into
 // the running Gumbel argmax (bv, bj), then takes the warp's argmax, so every
@@ -245,21 +115,24 @@ __device__ __forceinline__ void write_row(int g, int label, float delta,
   }
 }
 
-// K <= 128: one pass over all 2K columns [whole | delta].
-template <int CPT, class Rows>  // columns per lane: 2K <= 32 * CPT
-__global__ void __launch_bounds__(kThreads)
+// K <= 128: one pass over all 2K columns [whole | delta], in blocks of
+// ``Warps`` warps (Warps * 8 points).  The stage is dynamic shared memory:
+// at 16 warps and 2K = 256 it is 49.7 KB, above the 48 KB of a static one.
+template <int CPT, int Warps, class Rows>  // columns per lane: 2K <= 32 CPT
+__global__ void __launch_bounds__(Warps * 32)
 assign_kernel(Rows rows, const float* __restrict__ phi,
               const float* __restrict__ log_w,
               const int32_t* __restrict__ seed_ptr, int tile_off, int hard,
               int tile, int n, int f, int k, int32_t* __restrict__ labels,
               int32_t* __restrict__ sub) {
-  __shared__ __align__(16) Stage<CPT> sm;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& sm = *reinterpret_cast<Stage<CPT, Warps>*>(smem);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kBlockPoints;
+  const int row0 = blockIdx.x * Warps * kPointsPerWarp;
 
   float acc[kPointsPerWarp][CPT];
-  row_products<CPT>(rows, phi, 2 * k, 0, 2 * k, row0, n, f, sm, acc);
+  row_products<CPT, Warps>(rows, phi, 2 * k, 0, 2 * k, row0, n, f, sm, acc);
 
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
   const float noise = hard ? 0.0f : 1.0f;
@@ -298,7 +171,7 @@ assign_wide_kernel(Rows rows, const float* __restrict__ phi,
                    int hard, int tile, int n, int f, int k,
                    int32_t* __restrict__ labels, int32_t* __restrict__ sub) {
   constexpr int CPT = kWideCPT;
-  __shared__ __align__(16) Stage<CPT> sm;
+  __shared__ __align__(16) Stage<CPT, kWarps> sm;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int row0 = blockIdx.x * kBlockPoints;
@@ -321,8 +194,8 @@ assign_wide_kernel(Rows rows, const float* __restrict__ phi,
 
   float acc[kPointsPerWarp][CPT];
   for (int j0 = 0; j0 < k; j0 += 32 * CPT) {
-    row_products<CPT>(rows, phi, 2 * k, j0, min(32 * CPT, k - j0), row0, n,
-                      f, sm, acc);
+    row_products<CPT, kWarps>(rows, phi, 2 * k, j0, min(32 * CPT, k - j0),
+                              row0, n, f, sm, acc);
 #pragma unroll
     for (int r = 0; r < kPointsPerWarp; ++r)
       gumbel_argmax<CPT>(acc[r], j0, k, seed_of(wrow0 + r),
@@ -356,32 +229,68 @@ assign_wide_kernel(Rows rows, const float* __restrict__ phi,
   }
 }
 
+template <int CPT, int Warps, class Rows>
+cudaError_t launch_narrow_cpt(Rows rows, const float* phi, const float* log_w,
+                          const int32_t* seed, int tile_off, int hard,
+                          int tile, int n, int f, int k, int32_t* labels,
+                          int32_t* sub, cudaStream_t st) {
+  constexpr int kBytes = sizeof(Stage<CPT, Warps>);
+  auto kernel = assign_kernel<CPT, Warps, Rows>;
+  if (kBytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int kPoints = Warps * kPointsPerWarp;
+  kernel<<<(n + kPoints - 1) / kPoints, Warps * 32, kBytes, st>>>(
+      rows, phi, log_w, seed, tile_off, hard, tile, n, f, k, labels, sub);
+  return cudaGetLastError();
+}
+
+template <int Warps, class Rows>
+cudaError_t launch_narrow(Rows rows, const float* phi, const float* log_w,
+                          const int32_t* seed, int tile_off, int hard,
+                          int tile, int n, int f, int k, int32_t* labels,
+                          int32_t* sub, cudaStream_t st) {
+  const int two_k = 2 * k;
+#define DPMM_ASSIGN(CPT)                                                   \
+  return launch_narrow_cpt<CPT, Warps>(rows, phi, log_w, seed, tile_off,  \
+                                       hard, tile, n, f, k, labels, sub, st)
+  if (two_k <= 32) DPMM_ASSIGN(1);
+  if (two_k <= 64) DPMM_ASSIGN(2);
+  if (two_k <= 128) DPMM_ASSIGN(4);
+  DPMM_ASSIGN(8);
+#undef DPMM_ASSIGN
+}
+
+// ``warps`` other than 8 (4 or 16: the tile study's block sizes) is taken
+// only by the f32 cache at K <= 128.
 template <class Rows>
 cudaError_t launch_assign(Rows rows, const float* phi, const float* delta_t,
                           const float* log_w, const int32_t* seed,
                           int tile_off, int hard, int tile, int n, int f,
-                          int k, int32_t* labels, int32_t* sub,
+                          int k, int warps, int32_t* labels, int32_t* sub,
                           cudaStream_t st) {
-  const int blocks = (n + kBlockPoints - 1) / kBlockPoints;
-  const int two_k = 2 * k;
-#define DPMM_ASSIGN(CPT)                                                    \
-  assign_kernel<CPT, Rows><<<blocks, kThreads, 0, st>>>(                    \
-      rows, phi, log_w, seed, tile_off, hard, tile, n, f, k, labels, sub)
-  if (two_k <= 32) {
-    DPMM_ASSIGN(1);
-  } else if (two_k <= 64) {
-    DPMM_ASSIGN(2);
-  } else if (two_k <= 128) {
-    DPMM_ASSIGN(4);
-  } else if (two_k <= 256) {
-    DPMM_ASSIGN(8);
-  } else {
-    assign_wide_kernel<Rows><<<blocks, kThreads, 0, st>>>(
+  if (2 * k > 256) {
+    if (warps != kWarps) return cudaErrorInvalidValue;
+    assign_wide_kernel<Rows><<<(n + kBlockPoints - 1) / kBlockPoints,
+                               kThreads, 0, st>>>(
         rows, phi, delta_t, log_w, seed, tile_off, hard, tile, n, f, k,
         labels, sub);
+    return cudaGetLastError();
   }
-#undef DPMM_ASSIGN
-  return cudaGetLastError();
+  if (warps == kWarps)
+    return launch_narrow<kWarps>(rows, phi, log_w, seed, tile_off, hard,
+                                 tile, n, f, k, labels, sub, st);
+  if constexpr (std::is_same<Rows, CacheRows>::value) {
+    if (warps == 4)
+      return launch_narrow<4>(rows, phi, log_w, seed, tile_off, hard, tile,
+                              n, f, k, labels, sub, st);
+    if (warps == 16)
+      return launch_narrow<16>(rows, phi, log_w, seed, tile_off, hard, tile,
+                               n, f, k, labels, sub, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The assign pass over ``rows``, then the statistics pass over
@@ -390,11 +299,12 @@ template <class Rows, class StatRows>
 int assign_and_stats(Rows rows, StatRows stat_rows, const uint8_t* valid,
                      const float* phi, const float* delta_t,
                      const float* log_w, const int32_t* seed, int tile_off,
-                     int hard, int tile, int n, int f, int k,
+                     int hard, int tile, int n, int f, int k, int warps,
                      int32_t* labels, int32_t* sub, float* partial,
                      float* stats, cudaStream_t st) {
   cudaError_t err = launch_assign(rows, phi, delta_t, log_w, seed, tile_off,
-                                  hard, tile, n, f, k, labels, sub, st);
+                                  hard, tile, n, f, k, warps, labels, sub,
+                                  st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_stats(stat_rows, labels, sub, valid, n, f,
                                        k, partial, stats, st));
@@ -406,25 +316,28 @@ int assign_and_stats(Rows rows, StatRows stat_rows, const uint8_t* valid,
 // rows: the cache [n, f] when ``pairs`` is null, else the raw points [n, d]
 // with the column map pairs [f] (dpmm_kernels.cuh, BuiltRows).  delta_t
 // [k, f] (phi's delta columns, transposed) is read only when k > 128.
+// ``warps`` is the block size of the assign pass: 8 (64 points), or 4 or 16
+// for the cache at k <= 128.
 extern "C" int dpmm_fused_assign(const float* rows, const int32_t* pairs,
                                  int d, const uint8_t* valid,
                                  const float* phi, const float* delta_t,
                                  const float* log_w, const int32_t* seed,
                                  int tile_off, int hard, int tile, int n,
-                                 int f, int k, int32_t* labels, int32_t* sub,
-                                 float* partial, float* stats, void* stream) {
+                                 int f, int k, int warps, int32_t* labels,
+                                 int32_t* sub, float* partial, float* stats,
+                                 void* stream) {
   using namespace dpmm;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pairs != nullptr) {
     const BuiltRows built{rows, pairs, d};
     return assign_and_stats(built, built, valid, phi, delta_t, log_w, seed,
-                            tile_off, hard, tile, n, f, k, labels, sub,
-                            partial, stats, st);
+                            tile_off, hard, tile, n, f, k, warps, labels,
+                            sub, partial, stats, st);
   }
   const CacheRows cache{rows, f};
   return assign_and_stats(cache, cache, valid, phi, delta_t, log_w, seed,
-                          tile_off, hard, tile, n, f, k, labels, sub, partial,
-                          stats, st);
+                          tile_off, hard, tile, n, f, k, warps, labels, sub,
+                          partial, stats, st);
 }
 
 // feat: the bf16 cache [n, f].  raw null: "bfloat16", the statistics come
@@ -445,8 +358,8 @@ extern "C" int dpmm_fused_assign_bf16(const void* feat, const float* raw,
   if (raw != nullptr)
     return assign_and_stats(cache, BuiltRows{raw, pairs, d}, valid, phi,
                             delta_t, log_w, seed, tile_off, hard, tile, n, f,
-                            k, labels, sub, partial, stats, st);
+                            k, kWarps, labels, sub, partial, stats, st);
   return assign_and_stats(cache, cache, valid, phi, delta_t, log_w, seed,
-                          tile_off, hard, tile, n, f, k, labels, sub, partial,
-                          stats, st);
+                          tile_off, hard, tile, n, f, k, kWarps, labels, sub,
+                          partial, stats, st);
 }

@@ -31,9 +31,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # rows, pairs, d, valid, phi, delta_t, log_w, seed, tile_off, hard,
-    # tile, n, f, k, labels, sub, partial, stats, stream
+    # tile, n, f, k, warps, labels, sub, partial, stats, stream
     "dpmm_fused_assign": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _P, _P, _P, _P, _P],
+                          _I, _I, _I, _P, _P, _P, _P, _P],
     # feat, raw, pairs, d, then as dpmm_fused_assign from valid on
     "dpmm_fused_assign_bf16": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -43,8 +43,19 @@ _SIGNATURES = {
     # feat, labels, sub, valid, n, f, k, partial, stats, stream
     "dpmm_stats_from_labels_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "dpmm_stats_chunk": [],
+    # x, n, f, partial, out, out_rows, stream
+    "dpmm_column_sum": [_P, _I, _I, _P, _P, _I, _P],
+    "dpmm_column_chunk": [],
+    # x, valid, phi, log_w, loglrw, seed, tile, n, f, k, stages, sink,
+    # labels, sub, partial, stats, stream
+    "dpmm_kernel_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P],
+    # n, f, k, stages
+    "dpmm_ablate_scratch": [_I, _I, _I, _I],
     "dpmm_error_string": [_I],
 }
+_RESTYPES = {"dpmm_error_string": ctypes.c_char_p,
+             "dpmm_ablate_scratch": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -112,8 +123,7 @@ def load() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.dpmm_error_string.restype = ctypes.c_char_p
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -45,6 +45,9 @@ _GOLDEN = 0x9E3779B9
 _SUB_SALT = 0xA5A5A5A5
 
 VARIANTS = ("precomputed", "gaussian", "multinomial", "bfloat16", "hybrid")
+# kernel A's block sizes (points a block): 64 for every variant; 32 and 128
+# too for "precomputed" at K <= 128 (the tile study's), counted apart
+CTA_POINTS = (32, 64, 128)
 STATS_VARIANTS = ("precomputed", "gaussian", "multinomial", "bfloat16")
 _BF16 = ("bfloat16", "hybrid")
 _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
@@ -263,9 +266,15 @@ def stats_from_labels(x, labels, sub, valid, k: int,
     return stats
 
 
+def _launch_key(family_name: str, cta_points: int) -> str:
+    return (family_name if cta_points == 64
+            else f"{family_name} cta={cta_points}")
+
+
 def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
                  hard: bool = False, *, tile: int = 512,
-                 family_name: str = "precomputed", x_raw=None):
+                 family_name: str = "precomputed", x_raw=None,
+                 cta_points: int = 64):
     """One sweep's assignment + statistics pass.
 
     x       [N, F] float32 feature cache ("precomputed"), [N, D] raw
@@ -280,12 +289,19 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
             the sweep needs no host sync to draw it)
     hard    zero the label noise (sub-labels are always sampled)
     tile    rows per hash tile (the TPU kernel's tile; 512 by default)
+    cta_points  points per CUDA block of the assign pass: 64, or 32 or 128
+            for "precomputed" at K <= 128 (the results do not depend on it;
+            launches count under "precomputed cta=32" and "... cta=128")
 
     Returns ``(labels int32 [N], sub int32 [N], stats float32 [2K, F])``
     with stats rows ``[LEFT K | RIGHT K]``.  The ll product is exact float32
     whatever ``ll_precision`` the config names.
     """
     _check_variant(family_name, VARIANTS, x_raw)
+    if cta_points not in CTA_POINTS or (cta_points != 64 and (
+            family_name != "precomputed" or log_w.shape[0] > 128)):
+        raise ValueError(f"cta_points={cta_points}: 64 for every variant, "
+                         "32 or 128 only for 'precomputed' at K <= 128")
     if x.device.type == "cpu":
         if torch.is_tensor(seed):
             seed = int(seed.reshape(-1)[0])
@@ -317,24 +333,27 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     stats = torch.empty((2 * k, f), dtype=torch.float32, device=x.device)
     partial = _stats_scratch(n, k, f, x.device)
     lib = _build.load()
-    tail = (valid.data_ptr(), phi_mat.data_ptr(), delta_t.data_ptr(),
+    args = (valid.data_ptr(), phi_mat.data_ptr(), delta_t.data_ptr(),
             log_w.data_ptr(), seed.data_ptr(), int(tile_off), int(bool(hard)),
-            int(tile), n, f, k, labels.data_ptr(), sub.data_ptr(),
-            partial.data_ptr(), stats.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            int(tile), n, f, k)
+    outs = (labels.data_ptr(), sub.data_ptr(), partial.data_ptr(),
+            stats.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if family_name in _BF16:
         rc = lib.dpmm_fused_assign_bf16(x.data_ptr(), _ptr(x_raw),
-                                        _ptr(pairs), d, *tail)
+                                        _ptr(pairs), d, *args, *outs)
     else:
-        rc = lib.dpmm_fused_assign(x.data_ptr(), _ptr(pairs), d, *tail)
+        rc = lib.dpmm_fused_assign(x.data_ptr(), _ptr(pairs), d, *args,
+                                   cta_points // 8, *outs)
     _build.check(rc, "fused_assign")
-    fused_assign.launches[family_name] += 1
+    fused_assign.launches[_launch_key(family_name, cta_points)] += 1
     return labels, sub, stats
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    fused_assign.launches = dict.fromkeys(VARIANTS, 0)
+    fused_assign.launches = dict.fromkeys(
+        VARIANTS + tuple(_launch_key("precomputed", c) for c in CTA_POINTS
+                         if c != 64), 0)
     stats_from_labels.launches = dict.fromkeys(STATS_VARIANTS, 0)
 
 
