@@ -39,7 +39,6 @@ import copy
 import gc
 import json
 import pathlib
-import subprocess
 import sys
 import tempfile
 import time
@@ -74,14 +73,6 @@ FP32_FLOP_S = 67e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    return out.stdout.strip()
 
 
 def time_ms(torch, fn, reps: int = 10) -> float:
@@ -644,6 +635,7 @@ def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
                                                            agree_s)
         else:
             assert not lk.any() and not sk_.any(), f"{name}: labels written"
+        library = None       # one PyTorch call of the same function
         if key in keeps:
             lab, side = keeps[key]
             err = close(torch, stk_, sk.stats_from_labels_reference(
@@ -654,40 +646,56 @@ def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
                 ll_abs += (x[p0:p0 + (1 << 16)] @ phi).abs().sum(0)
             err = close_sums(torch, stk_[0, :3 * k], stp[0, :3 * k], ll_abs)
             assert not stk_[1:].any() and not stk_[0, 3 * k:].any()
+
+            def library():
+                return torch.einsum("nf,fk->k", x, phi)
+
+            close_sums(torch, library(), stp[0, :3 * k], ll_abs, rtol=1e-4)
         elif key in ("dma_only", "stats_raw"):
             rows = 1 if key == "dma_only" else 2 * k
             err = close_sums(torch, stk_[:rows], stp[:rows], xabs)
             assert not stk_[rows:].any()
+            if key == "dma_only":
+                def library():
+                    return torch.sum(x, 0)
         else:                  # "none": every output zero
             assert not stk_.any() and not stp.any()
             err = 0.0
         ms = time_ms(torch, run)
         plain_ms = time_ms(torch, plain)
-        # the bytes the set must read and every output written once; the
-        # product's columns it needs (2 flop a term) and one add a sum
+        library_ms = None if library is None else time_ms(torch, library)
+        # the bound counts what the set's outputs need: x read once, every
+        # output (labels, sides, statistics) written once, one add a sum;
+        # the product's columns (2 flop a term) only where the labels or
+        # the statistics depend on them.  dot_only's sums are colsum(x) @
+        # phi; "none" and "stats_raw" need no product, though the sink
+        # keeps the kernel's product and argmax live (``live``)
         nbytes = 4 * n * f + 8 * n + 4 * 2 * k * f
-        flop = 2.0 * n * f * k
-        if key == "dma_only":
-            flop = n * f
-        elif key == "dot_only":
+        flop = 0.0 if key == "none" else float(n * f)
+        live = 2.0 * n * f * k
+        if key == "dot_only":
             nbytes += 4 * f * 3 * k
-            flop = 2.0 * n * f * 3 * k
-        else:
-            nbytes += 4 * (f * 3 * k + 3 * k)
+            flop += 2.0 * f * 3 * k
+            live = 2.0 * n * f * 3 * k
+        elif "stats" in stages:
+            nbytes += n + 4 * (f * k + k)           # valid, whole phi, log_w
+            flop = 2.0 * n * f * k + int(valid.sum()) * f
             if "sub" in stages:
+                nbytes += 4 * (f * 2 * k + 2 * k)   # left/right phi, loglrw
                 flop += 2.0 * n * f * 2
-            if "stats" in stages:
-                nbytes += n
-                flop += int(valid.sum()) * f
-            elif "stats_raw" in stages:
-                flop += n * f
+            live = flop
+        elif key == "dma_only":
+            live = flop
         b = least_time(nbytes, flop)
+        live_ms = least_time(nbytes, live)["bound_ms"]
         log(f"kernel D {name} ({key}): {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}) (N={n}, "
-            f"F={f}, K={k}, tile {tile}; {smi}); max abs err {err:.3g}")
+            f"ms, library {library_ms} ms, bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_by']}), bound of the work the kernel keeps live "
+            f"{live_ms:.3f} ms (N={n}, F={f}, K={k}, tile {tile}; {smi}); "
+            f"max abs err {err:.3g}")
         out[f"kernel_ablate[{key}]"] = dict(max_abs_err=err, ms=ms,
                                             plain_ms=plain_ms, **b,
-                                            library_ms=None)
+                                            library_ms=library_ms)
     log("kernel D: the full set's labels equal kernel A's soft labels bit "
         "for bit")
 
@@ -891,10 +899,11 @@ def main() -> int:
         return 1
     import dpmmsubclusters_tpu_torch as dpmm
     from dpmmsubclusters_tpu_torch.ops import _build
+    from dpmmsubclusters_tpu_torch.utils import profiling
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    smi = nvidia_smi()
+    smi = profiling.card(dev)
     log(f"card: {smi}")
     log(f"torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "

@@ -17,7 +17,7 @@ the end.  ``BENCH_SMALL=1`` runs 100k x 32-d (K=20, ``k_max=32``, blocks of
 host running the reference (4.4e4 points/s).
 
     python -m dpmmsubclusters_tpu_torch.benchmarks.bench [--device cuda]
-        [--n N] [--trace DIR]
+        [--trace DIR]
 
 ``--trace DIR`` profiles one more sweep after the timed window
 (:func:`..utils.profiling.trace`) and writes its trace into DIR.
@@ -117,14 +117,12 @@ def run(device="cuda", small: bool = False, fdt=None, n=None,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--n", type=int, default=None,
-                    help="points (default 1M, or 100k with BENCH_SMALL=1)")
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="profile one sweep after the timed window into DIR")
     args = ap.parse_args(argv)
     out = run(args.device,
               small=os.environ.get("BENCH_SMALL", "") not in ("", "0"),
-              fdt=os.environ.get("BENCH_FDT", "") or None, n=args.n,
+              fdt=os.environ.get("BENCH_FDT", "") or None,
               trace_dir=args.trace)
     print(json.dumps(out), flush=True)
     return out

@@ -23,40 +23,38 @@ from . import _build
 from .sweep_kernels import (_PLAIN_ROWS, _SUB_SALT, _check_cuda, gumbel_noise,
                             stats_from_labels_reference, tile_seeds)
 
-# kernel D's stages, each a bit of the kernel's template mask in this order
-STAGES = ("dma_only", "dot_only", "stats_raw", "stats", "gumbel", "sub",
-          "write")
-# the stage sets of the ablation (benchmarks/kernel_ablate.py), the ones
-# the CUDA kernel is built for
-ABLATE_SETS = (("dma_only",), ("dot_only",), (), ("stats_raw",), ("stats",),
-               ("stats", "gumbel"), ("stats", "gumbel", "sub"),
-               ("stats", "gumbel", "sub", "write"))
+# kernel D's stage sets, those of the ablation (benchmarks/kernel_ablate.py
+# VARIANTS), each with its name and the bit mask csrc/kernel_ablate.cu
+# switches on (DMA_ONLY 1, DOT_ONLY 2, STATS_RAW 4, STATS 8, GUMBEL 16,
+# SUB 32, WRITE 64)
+STAGE_SETS = {
+    frozenset(("dma_only",)): ("dma_only", 1),
+    frozenset(("dot_only",)): ("dot_only", 2),
+    frozenset(): ("none", 0),
+    frozenset(("stats_raw",)): ("stats_raw", 4),
+    frozenset(("stats",)): ("stats", 8),
+    frozenset(("stats", "gumbel")): ("stats+gumbel", 24),
+    frozenset(("stats", "gumbel", "sub")): ("stats+gumbel+sub", 56),
+    frozenset(("stats", "gumbel", "sub", "write")):
+        ("stats+gumbel+sub+write", 120),
+}
 
 
-def stage_set(stages) -> tuple:
-    """The stage set the TPU kernel computes for ``stages``, in STAGES
-    order: ``dma_only`` and then ``dot_only`` return before any other
-    stage, and ``stats`` takes the place of ``stats_raw``."""
-    stages = set(stages)
-    unknown = stages - set(STAGES)
-    if unknown:
-        raise ValueError(f"unknown stages {sorted(unknown)}; known: "
-                         f"{STAGES}")
-    for only in ("dma_only", "dot_only"):
-        if only in stages:
-            return (only,)
-    if "stats" in stages:
-        stages.discard("stats_raw")
-    return tuple(s for s in STAGES if s in stages)
+def _stage_set(stages) -> tuple:
+    """``(name, mask)`` of a stage set; raises for a set not in
+    STAGE_SETS."""
+    try:
+        return STAGE_SETS[frozenset(stages)]
+    except KeyError:
+        raise ValueError(
+            f"kernel D is built for the stage sets "
+            f"{[name for name, _ in STAGE_SETS.values()]}; got "
+            f"{tuple(stages)}") from None
 
 
 def stage_key(stages) -> str:
     """The name of a stage set: its stages joined by "+", "none" for ()."""
-    return "+".join(stage_set(stages)) or "none"
-
-
-def _mask(stages) -> int:
-    return sum(1 << STAGES.index(s) for s in stage_set(stages))
+    return _stage_set(stages)[0]
 
 
 # ---- kernel C ----------------------------------------------------------------
@@ -99,18 +97,20 @@ def kernel_ablate_reference(x, valid, phi, log_w, loglrw, seed, *,
     [N], ``phi`` [F, 3K] columns [whole | left | right], ``log_w`` [K],
     ``loglrw`` [2, K] (left, right), ``seed`` int.  Returns ``(labels int32
     [N], sub int32 [N], stats float32 [2K, F])``; what a stage set does not
-    write is zero (see ``csrc/kernel_ablate.cu``)."""
-    stages = stage_set(stages)
+    write is zero (see ``csrc/kernel_ablate.cu``).  ``stages`` is one of
+    STAGE_SETS."""
+    key = _stage_set(stages)[0]
+    stages = key.split("+")
     n, f = x.shape
     k = log_w.shape[0]
     dev = x.device
     labels = torch.zeros(n, dtype=torch.int32, device=dev)
     sub = torch.zeros(n, dtype=torch.int32, device=dev)
     stats = torch.zeros((2 * k, f), dtype=torch.float32, device=dev)
-    if stages == ("dma_only",):
+    if key == "dma_only":
         column_sum_reference(x, stats[:1])
         return labels, sub, stats
-    if stages == ("dot_only",):
+    if key == "dot_only":
         if 3 * k > f:
             raise ValueError(f"dot_only needs 3K <= F; K={k}, F={f}")
         for p0 in range(0, n, _PLAIN_ROWS):
@@ -149,23 +149,19 @@ def kernel_ablate(x, valid, phi, log_w, loglrw, seed, *, tile: int = 512,
                   stages=()):
     """Kernel D over ``x`` for one stage set (arguments and results as
     :func:`kernel_ablate_reference`; ``seed`` an int or an int32 [1] tensor
-    on the card).  On the card K <= 128, and the stage set is one of
-    ABLATE_SETS (after :func:`stage_set`)."""
+    on the card).  On the card K <= 128."""
+    key, mask = _stage_set(stages)
     if x.device.type == "cpu":
         if torch.is_tensor(seed):
             seed = int(seed.reshape(-1)[0])
         return kernel_ablate_reference(x, valid, phi, log_w, loglrw, seed,
                                        tile=tile, stages=stages)
-    stages = stage_set(stages)
-    key = stage_key(stages)
-    if stages not in ABLATE_SETS:
-        raise ValueError(f"kernel D is built for the stage sets "
-                         f"{ABLATE_SETS}; got {stages}")
+    stages = key.split("+")
     n, f = x.shape
     k = log_w.shape[0]
     if not 1 <= k <= 128:
         raise ValueError(f"kernel D takes 1 <= K <= 128; got K={k}")
-    if stages == ("dot_only",) and 3 * k > f:
+    if key == "dot_only" and 3 * k > f:
         raise ValueError(f"dot_only needs 3K <= F; K={k}, F={f}")
     dev = x.device
     if not torch.is_tensor(seed):
@@ -190,7 +186,6 @@ def kernel_ablate(x, valid, phi, log_w, loglrw, seed, *, tile: int = 512,
     stats = (torch.empty if full else torch.zeros)(
         (2 * k, f), dtype=torch.float32, device=dev)
     lib = _build.load()
-    mask = _mask(stages)
     partial = torch.empty(lib.dpmm_ablate_scratch(n, f, k, mask),
                           dtype=torch.float32, device=dev)
     rc = lib.dpmm_kernel_ablate(
@@ -206,7 +201,7 @@ def kernel_ablate(x, valid, phi, log_w, loglrw, seed, *, tile: int = 512,
 def reset_launches() -> None:
     """Set every launch count of the study kernels to 0."""
     column_sum.launches = 0
-    kernel_ablate.launches = dict.fromkeys(map(stage_key, ABLATE_SETS), 0)
+    kernel_ablate.launches = {name: 0 for name, _ in STAGE_SETS.values()}
 
 
 reset_launches()

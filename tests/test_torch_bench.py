@@ -75,8 +75,9 @@ def _assert_stats(got, want, abs_sum):
 
 
 def _decisions(x, phi, log_w, loglrw, seed, tile, stages):
-    """The port's label logits and side margins, recomputed from its plain
-    arithmetic, for the near-tie rule."""
+    """The port's labels and sides for a stage set, recomputed from its plain
+    arithmetic, with their logit gaps and side margins for the near-tie
+    rule."""
     xt, phit, lwt, lrt = _t(x, phi, log_w, loglrw)
     k = len(log_w)
     ll = xt @ phit
@@ -93,7 +94,8 @@ def _decisions(x, phi, log_w, loglrw, seed, tile, stages):
                + g2[:, 1])
               - (ll[:, k:2 * k].gather(1, j[:, None])[:, 0] + lrt[0, j]
                  + g2[:, 0])).numpy()
-    return gap, np.abs(margin)
+    side = (margin > 0) if "sub" in stages else np.zeros(len(x), bool)
+    return gap, np.abs(margin), j.numpy(), side.astype(np.int64)
 
 
 @pytest.mark.parametrize("name,stages", tka.VARIANTS,
@@ -124,7 +126,8 @@ def test_ablate_plain_matches_tpu_kernel(rng, jax_studies, interpret, name,
     assert lt.dtype == st_.dtype == torch.int32 and stt.shape == (2 * K, F)
     lt, st_, stt = lt.numpy(), st_.numpy(), stt.numpy()
 
-    gap, margin = _decisions(x, phi, log_w, loglrw, seed, tile, stages)
+    gap, margin, lab, side = _decisions(x, phi, log_w, loglrw, seed, tile,
+                                        stages)
     diff = lt != lj
     assert (gap[diff] < TIE_GAP).all(), "labels differ beyond near-ties"
     sdiff = (st_ != sj) & ~diff
@@ -143,10 +146,7 @@ def test_ablate_plain_matches_tpu_kernel(rng, jax_studies, interpret, name,
         abs_sum[0, :3 * K] = np.abs(x.astype(np.float64) @ phi).sum(0)
     elif "stats" in stages:
         # the labels and sides the statistics are summed by
-        lw, sw, _ = stk.kernel_ablate(*_t(x, valid, phi, log_w, loglrw),
-                                      seed, tile=tile,
-                                      stages=stages + ("write",))
-        key = (sw * K + lw).numpy()[valid]
+        key = (side * K + lab)[valid]
         abs_sum = np.zeros(stj.shape)
         np.add.at(abs_sum, key, xa[valid])
     elif stages == ("stats_raw",):
@@ -220,16 +220,18 @@ def test_tile_study_full_matches_pallas_fused_assign(rng, tile):
 
 
 def test_stage_sets_follow_the_tpu_kernels_precedence():
-    assert stk.stage_set(("write", "dma_only")) == ("dma_only",)
-    assert stk.stage_set(("stats", "dot_only")) == ("dot_only",)
-    assert stk.stage_set(("stats_raw", "stats")) == ("stats",)
-    assert stk.stage_set(("sub", "stats", "gumbel")) == ("stats", "gumbel",
-                                                         "sub")
+    """Kernel D takes the ablation's 8 stage sets, in any order, on every
+    device, and refuses any other set."""
     assert [stk.stage_key(s) for _, s in tka.VARIANTS] == [
         "dma_only", "dot_only", "none", "stats_raw", "stats", "stats+gumbel",
         "stats+gumbel+sub", "stats+gumbel+sub+write"]
-    with pytest.raises(ValueError, match="unknown stages"):
-        stk.stage_set(("bogus",))
+    assert stk.stage_key(("sub", "stats", "gumbel")) == "stats+gumbel+sub"
+    x, valid, phi, log_w, loglrw = _t(*_ablate_inputs(
+        np.random.default_rng(0), n=256))
+    for stages in (("write", "dma_only"), ("stats_raw", "stats"),
+                   ("gumbel",), ("bogus",)):
+        with pytest.raises(ValueError, match="built for the stage sets"):
+            stk.kernel_ablate(x, valid, phi, log_w, loglrw, 1, stages=stages)
 
 
 def test_study_wrappers_never_fall_back_off_the_cpu():
@@ -295,7 +297,9 @@ def test_median_ms_and_card_on_the_cpu():
 
 def test_bench_prints_its_json_line_on_the_cpu(capsys, monkeypatch):
     monkeypatch.setenv("BENCH_SMALL", "1")
-    out = bench.main(["--device", "cpu", "--n", "1500"])
+    run = bench.run      # the small config at a rehearsal's point count
+    monkeypatch.setattr(bench, "run", lambda *a, **kw: run(*a, **kw, n=1500))
+    out = bench.main(["--device", "cpu"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line == out
     assert set(line) == {"metric", "value", "unit", "vs_baseline", "k",
