@@ -1,18 +1,22 @@
 """Smoke test of the PyTorch/CUDA port (dpmmsubclusters_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels from csrc/, checks each kernel
 and variant against its plain PyTorch version at the shapes the fits give it
-(and the raw-point and bf16 variants against the f32 cache variant bit for
-bit), runs kernel E's build gate (a well-formed kernel builds and runs,
-its ill-formed twin makes the build raise), checks the kernel studies'
+(kernel A under both ll_precision "highest", the exact float32 product, and
+"default", one bf16 pass on the tensor cores, with the two times side by
+side, and at two shapes under "high", the three-pass split; and the
+raw-point and bf16 variants against the f32 cache variant bit for bit
+under both), runs kernel E's build gate (a well-formed kernel builds and
+runs, its ill-formed twin makes the build raise), checks the kernel studies'
 kernels at their full sizes (kernel C's column sums and kernel A's 32-,
 64- and 128-point blocks at 1M x 640, K=128, whose labels must not depend
 on the block; each of kernel D's 8 stage sets at 1M x 561, K=128), runs
 the port's bench entry points (the tile study, the ablation, and the
 flagship bench, which must reach K=64 and whose one profiled sweep must
-name kernel A), then drives ``fit`` through every path of the port:
+name kernel A), then drives ``fit`` through every path of the port, at the
+config's default ll_precision ("default") unless it names another:
 
 * Gaussian with the f32 feature cache: the 4-corner gate, the 200k x 32-d
-  recovery gate and the 1M x 32-d flagship;
+  recovery gate and the 1M x 32-d flagship (also under "highest");
 * Gaussian with the rows built in the kernels: the flagship without its
   cache, and the 10M x 64-d fit whose f32 cache (86 GB) would not fit the
   card;
@@ -20,8 +24,11 @@ name kernel A), then drives ``fit`` through every path of the port:
   "hybrid" (200k x 32-d, the flagship, and the 10M x 64-d fit with its
   42.9 GB cache);
 * multinomial: 50k x 100-d and 1M x 100-d;
+* under "highest", one small fit of every other variant (the exact
+  kernels' paths), and under "high" a 4-corner and a 200k x 32-d fit;
 
-and profiles 8 steady sweeps of each 10M x 64-d fit with torch.profiler.
+and profiles 8 steady sweeps of the flagship fit and of each 10M x 64-d fit
+with torch.profiler.
 
     python3 chip_smoke.py
 
@@ -59,16 +66,20 @@ REPLACES = {
 }
 SOURCES = {
     "fused_assign": "dpmmsubclusters_tpu_torch/csrc/fused_assign.cu",
+    "fused_assign_tc": "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc.cu",
+    "fused_assign_tc3": "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc3.cu",
     "stats_from_labels": "dpmmsubclusters_tpu_torch/csrc/stats_from_labels.cu",
     "build_gate": "chip_smoke.py",      # GATE_KERNEL, built by _build.py
     "column_sum": "dpmmsubclusters_tpu_torch/csrc/column_sum.cu",
     "tile_study_full": "dpmmsubclusters_tpu_torch/csrc/fused_assign.cu",
     "kernel_ablate": "dpmmsubclusters_tpu_torch/csrc/kernel_ablate.cu",
 }
-# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s and
-# float32 FLOP/s outside the tensor cores (the kernels use none)
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s,
+# float32 FLOP/s outside the tensor cores, and dense bf16 FLOP/s of the
+# tensor cores (kernel A's ll product under ll_precision "default")
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -92,11 +103,14 @@ def separated_data(n: int, d: int, k_true: int, seed: int = 0):
     return x, labels
 
 
-def least_time(nbytes: float, flop: float) -> dict:
+def least_time(nbytes: float, flop: float, peak: float = FP32_FLOP_S,
+               more_flop: float = 0.0, more_peak: float = FP32_FLOP_S) -> dict:
     """The least time the card could take for work that must move
-    ``nbytes`` and do ``flop``: the larger of the two at the peaks."""
+    ``nbytes`` and do ``flop`` operations of a type whose peak rate is
+    ``peak`` (and ``more_flop`` of another type, at ``more_peak``): the
+    larger of the bytes' time and the operations' at the peaks."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_flop = flop / FP32_FLOP_S * 1e3
+    t_flop = (flop / peak + more_flop / more_peak) * 1e3
     return dict(bound_ms=max(t_bytes, t_flop),
                 bound_by="bytes" if t_bytes >= t_flop else "operations")
 
@@ -185,17 +199,20 @@ class Case:
         return nb
 
 
-def check_assign(torch, sk, name: str, case: Case, smi: str) -> dict:
-    """Kernel A against its plain version: hard labels identical except
-    near ties, soft labels and sub-labels agreeing >= 0.999, statistics at
-    rtol 1e-4 / atol 1e-3, two launches equal."""
+def check_assign(torch, sk, name: str, case: Case, smi: str,
+                 ll_precision: str = "highest") -> dict:
+    """Kernel A against its plain version at one ``ll_precision``: hard
+    labels identical except near ties, soft labels and sub-labels agreeing
+    >= 0.999, statistics at rtol 1e-4 / atol 1e-3, two launches equal."""
     x, valid, k = case.x, case.valid, case.k
+    name = f"{name} [{ll_precision}]"
+    kw = dict(case.kw(), ll_precision=ll_precision)
 
     def run(hard):
-        return sk.fused_assign(*case.args(), hard, **case.kw())
+        return sk.fused_assign(*case.args(), hard, **kw)
 
     def plain(hard):
-        return sk.fused_assign_reference(*case.args(), hard, **case.kw())
+        return sk.fused_assign_reference(*case.args(), hard, **kw)
 
     lk, _, _ = run(True)
     lp, _, _ = plain(True)
@@ -203,9 +220,12 @@ def check_assign(torch, sk, name: str, case: Case, smi: str) -> dict:
     diff = torch.nonzero(lk != lp)[:, 0]
     if diff.numel():
         # a flip is only allowed where the plain logits tie to within the
-        # float32 rounding of an F-term dot product in another order
+        # float32 rounding of an F-term dot product in another order (under
+        # "default" both sides round their operands to bf16 alike, so there
+        # too only the order of the float32 sums differs)
         rows = sk.feature_rows(x[diff], case.family)
-        ll = rows @ case.phi_mat[:, :k] + case.log_w
+        ll = sk.ll_product(rows, case.phi_mat[:, :k], ll_precision) \
+            + case.log_w
         top2 = torch.topk(ll, 2, dim=-1).values
         gap = (top2[:, 0] - top2[:, 1]).abs()
         bound = 1e-4 * top2[:, 0].abs().clamp(min=1.0)
@@ -232,21 +252,59 @@ def check_assign(torch, sk, name: str, case: Case, smi: str) -> dict:
     assert torch.equal(l2, lk) and torch.equal(s2, sk_) and torch.equal(
         st2, stk), f"{name} is not deterministic"
     ms = time_ms(torch, lambda: run(False))
+    # the assign pass alone: the call less its statistics pass, which is
+    # kernel B's launch on the same rows and labels
+    stat_x, stat_family = ((x, case.family) if case.x_raw is None
+                           else (case.x_raw, "gaussian"))
+    pass_ms = ms - time_ms(torch, lambda: sk.stats_from_labels(
+        stat_x, lk, sk_, valid, k, stat_family))
     plain_ms = time_ms(torch, lambda: plain(False))
     f = case.phi_mat.shape[0]
     # the function needs each point's whole columns and its label's one
-    # delta column (2 flop a term), the built rows' products and one add a
-    # statistic; it reads the rows, valid, phi and log_w once and writes
-    # labels, sub-labels and the statistics
+    # delta column (2 flop a term; on the tensor cores at bf16's peak under
+    # "default", three such products under "high", else float32's), the
+    # built rows' products and one add a statistic (float32); it reads the
+    # rows, valid, phi and log_w once and writes labels, sub-labels and the
+    # statistics
     n_valid = int(valid.sum())
-    b = least_time(case.row_bytes() + n + 4 * (f * 2 * k + k) + 8 * n
-              + 4 * 2 * k * f,
-              2.0 * n * f * (k + 1) + n * case.built + n_valid * f)
-    log(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+    nbytes = (case.row_bytes() + n + 4 * (f * 2 * k + k) + 8 * n
+              + 4 * 2 * k * f)
+    product = 2.0 * n * f * (k + 1)
+    rest = n * case.built + n_valid * f
+    passes = {"default": 1, "bf16": 1, "high": 3}.get(ll_precision)
+    if passes:
+        b = least_time(nbytes, passes * product, BF16_FLOP_S, rest,
+                       FP32_FLOP_S)
+    else:
+        b = least_time(nbytes, product + rest)
+    log(f"{name}: {ms:.3f} ms (less kernel B's time, the assign pass: "
+        f"{pass_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
         f"{b['bound_ms']:.3f} ms ({b['bound_by']}) (N={n}, F={f}, K={k}; "
         f"{smi}); max abs err {err:.3g}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
-                library_ms=None)
+                library_ms=None, pass_ms=pass_ms)
+
+
+def check_assign_both(torch, sk, out: dict, key: str, name: str, case: Case,
+                      smi: str, high: bool = False) -> None:
+    """Kernel A at both precisions, the two times side by side:
+    ``out[key]`` is the "default" result (the fits' kernel), ``out[key +
+    " highest"]`` the exact one; with ``high`` also the three-pass split
+    ("high", ``out[key + " high"]``)."""
+    res = {p: check_assign(torch, sk, name, case, smi, p)
+           for p in ("highest", "default") + (("high",) if high else ())}
+    passes = {p: r.pop("pass_ms") for p, r in res.items()}
+    hi, de = res["highest"], res["default"]
+    if high:
+        out[key + " high"] = res["high"]
+        log(f"{name}: \"high\" {res['high']['ms']:.3f} ms, assign pass "
+            f"alone {passes['high']:.3f} ms, same call ({smi})")
+    log(f"{name}: \"default\" {de['ms']:.3f} ms beside \"highest\" "
+        f"{hi['ms']:.3f} ms ({hi['ms'] / de['ms']:.2f}x); assign pass alone "
+        f"{passes['default']:.3f} beside {passes['highest']:.3f} ms "
+        f"({passes['highest'] / passes['default']:.2f}x), same call ({smi})")
+    out[key] = de
+    out[key + " highest"] = hi
 
 
 def check_stats(torch, sk, name: str, case: Case, smi: str) -> dict:
@@ -298,43 +356,54 @@ def check_stats(torch, sk, name: str, case: Case, smi: str) -> dict:
 def twin_gate(torch, sk, case: Case) -> None:
     """The "gaussian" variants on x against the "precomputed" ones on
     GaussianFamily.features(x): labels, sub-labels and statistics equal bit
-    for bit (the rows are built as the cache's rounded products and feed
-    the same FMA chains)."""
+    for bit under both precisions (the rows are built as the cache's
+    rounded products, so they feed the same FMA chains and round to the
+    same bf16 values)."""
     from dpmmsubclusters_tpu_torch.priors import GAUSSIAN
 
     feat = GAUSSIAN.features(case.x)
-    for hard in (True, False):
-        built = sk.fused_assign(*case.args(), hard, **case.kw())
-        cache = sk.fused_assign(feat, *case.args()[1:], hard, tile=HASH_TILE)
-        for what, b, c in zip(("labels", "sub-labels", "stats"), built,
-                              cache):
-            assert torch.equal(b, c), f"kernel A twins differ: {what}"
+    for prec in ("highest", "default"):
+        for hard in (True, False):
+            built = sk.fused_assign(*case.args(), hard, **case.kw(),
+                                    ll_precision=prec)
+            cache = sk.fused_assign(feat, *case.args()[1:], hard,
+                                    tile=HASH_TILE, ll_precision=prec)
+            for what, b, c in zip(("labels", "sub-labels", "stats"), built,
+                                  cache):
+                assert torch.equal(b, c), (f"kernel A twins differ under "
+                                           f"{prec}: {what}")
     labels, sub = built[0], built[1]
     assert torch.equal(
         sk.stats_from_labels(case.x, labels, sub, case.valid, case.k,
                              "gaussian"),
         sk.stats_from_labels(feat, labels, sub, case.valid, case.k)), \
         "kernel B twins differ"
-    log(f"twin gate: gaussian == precomputed bit for bit for A (hard, soft) "
-        f"and B (N={case.x.shape[0]}, D={case.x.shape[1]}, K={case.k})")
+    log(f"twin gate: gaussian == precomputed bit for bit for A (hard, soft; "
+        f"highest, default) and B (N={case.x.shape[0]}, "
+        f"D={case.x.shape[1]}, K={case.k})")
 
 
 def bf16_twin_gate(torch, sk, case: Case) -> None:
     """The "bfloat16" variants on a bf16 cache against the "precomputed"
     ones on cache.float(): labels, sub-labels and statistics equal bit for
-    bit (the upcast is exact and feeds the same FMA chains).  The "hybrid"
+    bit under both precisions (the upcast is exact and feeds the same FMA
+    chains; a bf16 value rounds to itself).  The "hybrid"
     labels and sub-labels equal them too, and its statistics equal kernel
     B "gaussian" on the raw points at those labels."""
     hyb = case.as_hybrid()
     twin_x = case.x.float()
-    for hard in (True, False):
-        twin = sk.fused_assign(twin_x, *case.args()[1:], hard, tile=HASH_TILE)
-        got = sk.fused_assign(*case.args(), hard, **case.kw())
+    for prec, hard in ((p, h) for p in ("highest", "default")
+                       for h in (True, False)):
+        twin = sk.fused_assign(twin_x, *case.args()[1:], hard, tile=HASH_TILE,
+                               ll_precision=prec)
+        got = sk.fused_assign(*case.args(), hard, **case.kw(),
+                              ll_precision=prec)
         for what, a, b in zip(("labels", "sub-labels", "stats"), got, twin):
-            assert torch.equal(a, b), f"kernel A bfloat16 twins differ: {what}"
-        hy = sk.fused_assign(*hyb.args(), hard, **hyb.kw())
+            assert torch.equal(a, b), (f"kernel A bfloat16 twins differ "
+                                       f"under {prec}: {what}")
+        hy = sk.fused_assign(*hyb.args(), hard, **hyb.kw(), ll_precision=prec)
         assert torch.equal(hy[0], twin[0]) and torch.equal(hy[1], twin[1]), \
-            "kernel A hybrid labels differ from the f32 twin's"
+            f"kernel A hybrid labels differ from the f32 twin's under {prec}"
         assert torch.equal(hy[2], sk.stats_from_labels(
             case.raw, hy[0], hy[1], case.valid, case.k, "gaussian")), \
             "kernel A hybrid statistics differ from kernel B gaussian"
@@ -344,7 +413,8 @@ def bf16_twin_gate(torch, sk, case: Case) -> None:
         sk.stats_from_labels(twin_x, got[0], got[1], case.valid, case.k)), \
         "kernel B bfloat16 twins differ"
     log(f"bf16 twin gate: bfloat16 == precomputed on cache.float() bit for "
-        f"bit for A (hard, soft) and B; hybrid labels equal, its statistics "
+        f"bit for A (hard, soft; highest, default) and B; hybrid labels "
+        f"equal, its statistics "
         f"== B gaussian (N={case.x.shape[0]}, F={case.x.shape[1]}, "
         f"K={case.k})")
 
@@ -364,12 +434,14 @@ def check_bf16(torch, sk, out: dict, x, k: int, smi: str, main: bool):
         f"{time.perf_counter() - t0:.3f} s")
     tag = f" F={f} K={k}"
     bf16_twin_gate(torch, sk, case)
-    out["fused_assign[bfloat16]" + ("" if main else tag)] = check_assign(
-        torch, sk, "kernel A bfloat16" + tag, case, smi)
+    check_assign_both(torch, sk, out,
+                      "fused_assign[bfloat16]" + ("" if main else tag),
+                      "kernel A bfloat16" + tag, case, smi)
     out["stats_from_labels[bfloat16]" + ("" if main else tag)] = check_stats(
         torch, sk, "kernel B bfloat16" + tag, case, smi)
-    out["fused_assign[hybrid]" + ("" if not main else tag)] = check_assign(
-        torch, sk, "kernel A hybrid" + tag, case.as_hybrid(), smi)
+    check_assign_both(torch, sk, out,
+                      "fused_assign[hybrid]" + ("" if not main else tag),
+                      "kernel A hybrid" + tag, case.as_hybrid(), smi)
     del case
     torch.cuda.empty_cache()
 
@@ -468,15 +540,15 @@ def check_kernels(torch, dev, smi: str) -> dict:
     twin_gate(torch, sk, case)
     del case
     cache = Case(torch, dev, x, "gaussian", K_MAX_FLAG, cache="float32")
-    out["fused_assign[precomputed]"] = check_assign(
-        torch, sk, "kernel A precomputed", cache, smi)
+    check_assign_both(torch, sk, out, "fused_assign[precomputed]",
+                      "kernel A precomputed", cache, smi, high=True)
     out["stats_from_labels[precomputed]"] = check_stats(
         torch, sk, "kernel B precomputed", cache, smi)
     del cache
-    for k in (192, 256):      # above one pass: any K (the K <= 128 repair)
+    for k in (192, 256):      # above one pass of 128 whole columns: any K
         wide = Case(torch, dev, x, "gaussian", k, cache="float32")
-        out[f"fused_assign[precomputed] K={k}"] = check_assign(
-            torch, sk, f"kernel A precomputed K={k}", wide, smi)
+        check_assign_both(torch, sk, out, f"fused_assign[precomputed] K={k}",
+                          f"kernel A precomputed K={k}", wide, smi)
         del wide
     torch.cuda.empty_cache()
     # the flagship's bf16 caches (bfloat16's main path)
@@ -487,8 +559,8 @@ def check_kernels(torch, dev, smi: str) -> dict:
     x, _ = separated_data(N_CHECK, 64, 100)
     x = (x - x.mean(0)) / x.std(0)
     case = Case(torch, dev, x, "gaussian", 256)
-    out["fused_assign[gaussian]"] = check_assign(
-        torch, sk, "kernel A gaussian", case, smi)
+    check_assign_both(torch, sk, out, "fused_assign[gaussian]",
+                      "kernel A gaussian", case, smi, high=True)
     out["stats_from_labels[gaussian]"] = check_stats(
         torch, sk, "kernel B gaussian", case, smi)
     # ... and its 42.9 GB hybrid cache's rows (hybrid's main path): the
@@ -500,8 +572,8 @@ def check_kernels(torch, dev, smi: str) -> dict:
     # the multinomial fits' counts: D=100, F=101, K=64
     x, _, _ = generate_mnmm_data(N_CHECK, 100, 20, 120, seed=1)
     case = Case(torch, dev, x, "multinomial", 64)
-    out["fused_assign[multinomial]"] = check_assign(
-        torch, sk, "kernel A multinomial", case, smi)
+    check_assign_both(torch, sk, out, "fused_assign[multinomial]",
+                      "kernel A multinomial", case, smi)
     out["stats_from_labels[multinomial]"] = check_stats(
         torch, sk, "kernel B multinomial", case, smi)
     del case
@@ -590,7 +662,9 @@ def check_tile_study(torch, sk, kts, x, valid, phi, log_w, smi: str,
 
 def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
     """Kernel D, each stage set of the ablation at its full size (1M x
-    F=561, K=128, tile 512) against its plain version.  The statistics of a
+    F=561, K=128, tile 512) against its plain version.  The product is the
+    exact float32 one (the ablation of kernel A under ll_precision
+    "highest", which the calls of kernel A here take).  The statistics of a
     set are held against the plain statistics at the kernel's own labels:
     kernel A's hard labels ("+stats"; the same FMA chain on the same whole
     columns gives the same bits), its soft labels ("+gumbel"; the same
@@ -668,15 +742,16 @@ def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
         # output (labels, sides, statistics) written once, one add a sum;
         # the product's columns (2 flop a term) only where the labels or
         # the statistics depend on them.  dot_only's sums are colsum(x) @
-        # phi; "none" and "stats_raw" need no product, though the sink
-        # keeps the kernel's product and argmax live (``live``)
+        # phi, and that is what it computes; "none" and "stats_raw" need no
+        # product, though the sink keeps the kernel's product and argmax
+        # live (``live``)
         nbytes = 4 * n * f + 8 * n + 4 * 2 * k * f
         flop = 0.0 if key == "none" else float(n * f)
         live = 2.0 * n * f * k
         if key == "dot_only":
             nbytes += 4 * f * 3 * k
             flop += 2.0 * f * 3 * k
-            live = 2.0 * n * f * 3 * k
+            live = flop
         elif "stats" in stages:
             nbytes += n + 4 * (f * k + k)           # valid, whole phi, log_w
             flop = 2.0 * n * f * k + int(valid.sum()) * f
@@ -696,6 +771,12 @@ def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
         out[f"kernel_ablate[{key}]"] = dict(max_abs_err=err, ms=ms,
                                             plain_ms=plain_ms, **b,
                                             library_ms=library_ms)
+        if key == "dot_only":
+            # its target is within 15% of the one PyTorch call; the gate
+            # only refuses a return to the product over the points (16.7x)
+            log(f"kernel D dot_only takes {ms / library_ms:.3f} times "
+                f"torch.einsum's time")
+            assert ms <= 1.5 * library_ms, (ms, library_ms)
     log("kernel D: the full set's labels equal kernel A's soft labels bit "
         "for bit")
 
@@ -764,11 +845,15 @@ def run_studies(torch, smi: str) -> dict:
     out["bench"] = dict(fused_assign=dict(sk.fused_assign.launches),
                         stats_from_labels=dict(sk.stats_from_labels.launches))
     assert line["k"] == K_TRUE_FLAG, line
+    out["bench"]["tensor_core"] = dict(sk.fused_assign.tensor_core_launches)
     assert out["bench"]["fused_assign"]["precomputed"] > 0, out["bench"]
-    assert "assign_kernel" in text, "the bench's trace names no kernel A"
+    # the bench runs at the config's default precision: the tensor cores
+    assert (out["bench"]["tensor_core"]["precomputed"]
+            == out["bench"]["fused_assign"]["precomputed"]), out["bench"]
+    assert "assign_tc_kernel" in text, "the bench's trace names no kernel A"
     log(f"bench: {line['ms_per_sweep']:.3f} ms/sweep, {line['value']} "
         f"points/s, K={line['k']} in {secs:.1f} s ({smi}); its profiled "
-        f"sweep names kernel A ({text.count('assign_kernel')} mentions); "
+        f"sweep names kernel A ({text.count('assign_tc_kernel')} mentions); "
         f"launches {out['bench']}")
     out["bench_line"] = line
     free(torch)
@@ -812,12 +897,23 @@ def run_fit(torch, name: str, x, gt, variant, **kw) -> dict:
     for fn, by_variant in counts.items():
         ran = {v for v, c in by_variant.items() if c}
         assert ran == {variant[fn]}, (name, fn, by_variant)
+    # kernel A's launches took the tensor cores, but under "highest" the
+    # exact kernel
+    tc = dict(sk.fused_assign.tensor_core_launches)
+    a_variant = variant["fused_assign"]
+    exact_f32 = res.model.cfg.ll_precision == "highest"
+    assert tc[a_variant] == (0 if exact_f32 else
+                             counts["fused_assign"][a_variant]), (name, tc,
+                                                                  counts)
+    assert sum(tc.values()) == tc[a_variant], (name, tc)
+    counts["tensor_core"] = tc
     nmi = dpmm.nmi(gt, res.labels)
     ms_sweep = float(np.median(res.history.times[-40:])) * 1e3
     cache = (f", cache ({res.model.cfg.feature_dtype}) built in "
              f"{feat_s[0]:.3f} s" if feat_s else "")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"{name}: K={res.k} NMI={nmi:.6f} in {secs:.1f} s{cache}, median "
+    log(f"{name} [ll_precision={res.model.cfg.ll_precision}]: K={res.k} "
+        f"NMI={nmi:.6f} in {secs:.1f} s{cache}, median "
         f"{ms_sweep:.2f} ms/sweep over the last 40 sweeps, peak device "
         f"memory {peak:.2f} GB, launches {counts}")
     return dict(res=res, nmi=nmi, launches=counts, ms=ms_sweep,
@@ -864,7 +960,8 @@ def profile_sweeps(torch, res, x, name: str, smi: str, sweeps: int = 8):
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = ev.time_range.elapsed_us()
-        part = ("assign pass" if "assign" in ev.name else
+        part = ("assign pass" if ("assign" in ev.name
+                                 or "stage_phi" in ev.name) else
                 "statistics pass" if "stats_partial" in ev.name else
                 "chunk reduction" if "stats_reduce" in ev.name else
                 "table math")
@@ -920,6 +1017,8 @@ def main() -> int:
     studies = run_studies(torch, smi)
     log(f"studies and bench done at {time.perf_counter() - t_start:.1f} s")
     launches = {}      # the main path of each variant: launch counts
+    exact = {}         # the same under ll_precision="highest"
+    split = {}         # ... and under "high" (the three-pass split)
 
     # 4-corner golden gate (tests/test_fit_e2e.py::TestFourCorners), with
     # the f32 cache and with the bf16 one
@@ -929,13 +1028,19 @@ def main() -> int:
         x[i * 250:(i + 1) * 250] = c
         gt[i * 250:(i + 1) * 250] = i
     corners = dict(alpha=100.0, iters=100, seed=12345, burnout=5)
-    for layout, variant in (("float32", "precomputed"),
-                            ("bfloat16", "bfloat16")):
+    for layout, variant, prec in (("float32", "precomputed", "default"),
+                                  ("float32", "precomputed", "high"),
+                                  ("bfloat16", "bfloat16", "default"),
+                                  ("bfloat16", "bfloat16", "highest")):
         r = run_fit(torch, f"4 corners ({layout} cache)", x, gt, variant,
-                    feature_dtype=layout, **corners)
+                    feature_dtype=layout, ll_precision=prec, **corners)
         pred, _ = r["res"].predict(x)
         assert r["res"].k == 4 and r["nmi"] == 1.0, (r["res"].k, r["nmi"])
         assert np.array_equal(pred, r["res"].labels), "predict != labels"
+        if prec == "highest":
+            exact["bfloat16"] = r["launches"]
+        elif prec == "high":
+            split["precomputed"] = r["launches"]
 
     # 200k x 32-d recovery (benchmarks/stats_precision_ab.py quality data),
     # with the f32 cache and with the hybrid one
@@ -944,35 +1049,58 @@ def main() -> int:
     gt = rng.integers(0, 20, size=200_000)
     x = means[gt] + rng.standard_normal((200_000, 32)).astype(np.float32)
     hybrid = {"fused_assign": "hybrid", "stats_from_labels": "gaussian"}
-    for layout, variant in (("float32", "precomputed"), ("hybrid", hybrid)):
-        r = run_fit(torch, f"200k x 32-d ({layout} cache)", x, gt, variant,
+    for layout, variant, cached, prec in (
+            ("float32", "precomputed", True, "default"),
+            ("hybrid", hybrid, True, "default"),
+            ("hybrid", hybrid, True, "highest"),
+            ("float32", "gaussian", False, "highest"),
+            ("float32", "gaussian", False, "high")):
+        what = f"{layout} cache" if cached else "no cache"
+        r = run_fit(torch, f"200k x 32-d ({what})", x, gt, variant,
                     alpha=10.0, iters=200, seed=1, k_max=64,
-                    precompute_features=True, feature_dtype=layout)
+                    precompute_features=cached, feature_dtype=layout,
+                    ll_precision=prec)
         assert r["res"].k == 20 and r["nmi"] == 1.0, (r["res"].k, r["nmi"])
+        if prec == "highest":
+            exact[variant if isinstance(variant, str)
+                  else "hybrid"] = r["launches"]
+        elif prec == "high":
+            split["gaussian"] = r["launches"]
 
     # 1M x 32-d flagship: bench.py's data and config, through fit, with the
-    # f32 feature cache, with the rows built in the kernels and with the
-    # two bf16 caches
+    # f32 feature cache (at the default precision and, side by side, under
+    # "highest"), with the rows built in the kernels and with the two bf16
+    # caches
     x, gt = separated_data(N_FLAG, D_FLAG, K_TRUE_FLAG)
     flag = dict(alpha=10.0, iters=120, seed=0, k_max=K_MAX_FLAG,
                 chunk_size=16384, burnout=5, track_posterior=False,
                 merge_candidates=K_MAX_FLAG)
     ms = {}
-    for layout, variant, cached in (("float32", "precomputed", True),
-                                    ("float32", "gaussian", False),
-                                    ("hybrid", hybrid, True),
-                                    ("bfloat16", "bfloat16", True)):
+    for layout, variant, cached, prec in (
+            ("float32", "precomputed", True, "default"),
+            ("float32", "precomputed", True, "highest"),
+            ("float32", "gaussian", False, "default"),
+            ("hybrid", hybrid, True, "default"),
+            ("bfloat16", "bfloat16", True, "default")):
         what = f"{layout} cache" if cached else "no cache"
+        if prec == "highest":
+            what += ", highest"
         r = run_fit(torch, f"flagship 1M x 32-d ({what})", x, gt, variant,
-                    precompute_features=cached, feature_dtype=layout, **flag)
+                    precompute_features=cached, feature_dtype=layout,
+                    ll_precision=prec, **flag)
         ms[what] = r["ms"]
+        if prec == "highest":
+            exact["precomputed"] = r["launches"]
+        elif variant == "precomputed":
+            profile_sweeps(torch, r["res"], x, "flagship 1M x 32-d (float32 "
+                           "cache)", smi)
         if layout == "bfloat16":
             # reported, not gated: the JAX package documents that this
             # layout's bf16 statistics make the chain under-split
             # (config.feature_dtype)
             launches["bfloat16"] = r["launches"]
             continue
-        if cached and layout == "float32":
+        if variant == "precomputed" and prec == "default":
             launches["precomputed"] = r["launches"]
         assert r["res"].k == K_TRUE_FLAG and r["nmi"] >= 0.999, (
             what, r["res"].k, r["nmi"])
@@ -984,9 +1112,11 @@ def main() -> int:
     # multinomial (benchmarks/suite.py:69-76, and its 1M-document shape)
     mnm = dict(family="multinomial", alpha=1.0, seed=1, burnout=10)
     x, gt, _ = dpmm.generate_mnmm_data(50_000, 100, 10, 120, seed=0)
-    r = run_fit(torch, "multinomial 50k x 100-d", x, gt, "multinomial",
-                iters=100, k_max=32, **mnm)
-    assert r["res"].k == 10 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
+    for prec in ("default", "highest"):
+        r = run_fit(torch, "multinomial 50k x 100-d", x, gt, "multinomial",
+                    iters=100, k_max=32, ll_precision=prec, **mnm)
+        assert r["res"].k == 10 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
+    exact["multinomial"] = r["launches"]
     x, gt, _ = dpmm.generate_mnmm_data(1_000_000, 100, 20, 120, seed=0)
     r = run_fit(torch, "multinomial 1M x 100-d", x, gt, "multinomial",
                 iters=150, k_max=64, **mnm)
@@ -1031,12 +1161,44 @@ def main() -> int:
         for variant in variants:
             n_launch = launches[variant][name][variant]
             assert n_launch > 0, (name, variant, "not launched on its path")
+            what = f"{variant} variant"
+            source = SOURCES[name]
+            if name == "fused_assign":
+                # the fits' kernel A: the tensor-core assign pass
+                assert launches[variant]["tensor_core"][variant] == n_launch
+                what += ", ll_precision default: one bf16 pass"
+                source = SOURCES["fused_assign_tc"]
             report["kernels"].append({
                 "name": f"{name}[{variant}]", "route": "cuda",
-                "source": SOURCES[name],
-                "replaces": f"{REPLACES[name]} ({variant} variant)",
+                "source": source,
+                "replaces": f"{REPLACES[name]} ({what})",
                 "launches": n_launch,
                 **kernels[f"{name}[{variant}]"]})
+            if name != "fused_assign":
+                continue
+            # ... and the exact float32 kernel A, on its "highest" fit
+            n_launch = exact[variant][name][variant]
+            assert n_launch > 0 and not exact[variant]["tensor_core"][
+                variant], (name, variant, "highest", exact[variant])
+            report["kernels"].append({
+                "name": f"{name}[{variant}] highest", "route": "cuda",
+                "source": SOURCES[name],
+                "replaces": f"{REPLACES[name]} ({variant} variant, "
+                            f"ll_precision highest: exact float32)",
+                "launches": n_launch,
+                **kernels[f"{name}[{variant}] highest"]})
+            if variant not in split:
+                continue
+            # ... and the three-pass split, on its "high" fit
+            n_launch = split[variant]["tensor_core"][variant]
+            assert n_launch > 0, (name, variant, "high", split[variant])
+            report["kernels"].append({
+                "name": f"{name}[{variant}] high", "route": "cuda",
+                "source": SOURCES["fused_assign_tc3"],
+                "replaces": f"{REPLACES[name]} ({variant} variant, "
+                            f"ll_precision high: three bf16 passes)",
+                "launches": n_launch,
+                **kernels[f"{name}[{variant}] high"]})
     # kernel E's path is the build gate itself
     report["kernels"].append({
         "name": "build_gate[lane_iota]", "route": "cuda",

@@ -11,7 +11,8 @@ CPU).  The data, config and loop are ``bench.py``'s: a mixture of 64
 separated Gaussians (means x8, unit covariances, ``default_rng(0)``),
 centred; ``k_max=128`` at a fixed table width (the engine, not ``fit``:
 no capacity tiers); the f32 feature cache (``BENCH_FDT`` picks another
-layout); 5 warm-up blocks of 16 sweeps, then 5 timed blocks fenced once at
+layout); the config's default ``ll_precision`` (one bf16 pass for kernel
+A's ll product); 5 warm-up blocks of 16 sweeps, then 5 timed blocks fenced once at
 the end.  ``BENCH_SMALL=1`` runs 100k x 32-d (K=20, ``k_max=32``, blocks of
 10 sweeps).  ``vs_baseline`` divides by ``bench.py``'s estimate of a 32-core
 host running the reference (4.4e4 points/s).

@@ -18,6 +18,10 @@ statistics pass, the label writes).  Two parts, as on the TPU:
 Inputs: x and phi standard normal, log_w and loglrw 0, every point valid.
 Times are medians of CUDA-event timings.  On the card ``stats_raw`` no
 longer isolates a matmul: its 2K rows of column sums are one reduction.
+Nor does ``dot_only`` time a product over the points: its output is
+colsum(x) @ phi and is computed so, one read of x.  The product is the
+exact float32 one of ``ll_precision="highest"``; the fits' default takes
+the tensor cores (``chip_smoke.py`` times the two side by side).
 
     python -m dpmmsubclusters_tpu_torch.benchmarks.kernel_ablate \\
         [n] [d] [k] [--device cuda] [--reps 10]

@@ -9,8 +9,13 @@ Knobs that only steer the TPU build are accepted and ignored here:
 ``compile_cache_dir`` (nothing is traced) and ``chunk_size`` (the CUDA
 kernels pick their own point blocks).  ``fused_block`` is the number of
 sweeps between block-boundary smart passes and tier checks.
-``ll_precision`` and ``stats_precision`` are accepted; the CUDA kernels
-compute both contractions in exact float32 on every setting.
+``ll_precision`` is honoured with the JAX package's meaning (kernel A,
+:func:`.ops.sweep_kernels.fused_assign`): "default" and "bf16" round the
+feature rows and phi to bf16 and sum the products in float32, one pass of
+the card's tensor cores; "high" is the float32-faithful three-pass bf16
+split there; "highest" is the exact float32 product.  ``stats_precision`` is
+accepted;
+the CUDA kernels compute the statistics in exact float32 on every setting.
 """
 from __future__ import annotations
 
@@ -100,9 +105,11 @@ class DPMMConfig:
     # None = on when k_max >= 64 (small tables aren't worth extra compiles)
     track_posterior: bool = True    # per-sweep log-posterior metric (the
     # reference computes it only when verbose, dp-parallel-sampling.jl:379)
-    ll_precision: str = "default"   # Pallas likelihood-matmul precision:
-    # "default" = 1 bf16 MXU pass (logit noise ~1e-3 relative -- far below
-    # the Gumbel sampling noise; ~1.5x faster kernel), "highest" = exact f32
+    ll_precision: str = "default"   # precision of kernel A's ll product:
+    # "default" / "bf16" = rows and phi rounded to bf16, float32 sums, one
+    # tensor-core pass (logit noise ~1e-3 relative -- far below the Gumbel
+    # sampling noise); "high" = the three-pass bf16 split (f32-faithful);
+    # "highest" = exact f32
     stats_precision: str = "split2"  # statistics-matmul precision.  The
     # covariance suff stat cancels E[xx] - mu mu^T, so plain bf16 ("default")
     # is unusable (K=17/NMI 0.964 on the 200k x 32-d gate).  "split2"/"split3"

@@ -1,6 +1,6 @@
 // Shared pieces of the sweep kernels: the counter-based Gumbel hash, the
-// three sources of feature rows, and the statistics launcher that both
-// kernels' C entry points use.
+// argmax tie rule, the three sources of feature rows, and the launchers that
+// the kernels' C entry points share.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC,
 //        one object per .cu, linked -shared (no --use_fast_math: the hash's
@@ -45,9 +45,16 @@ __device__ __forceinline__ float gumbel(uint32_t s, uint32_t ctr) {
   return -logf(-logf(u));
 }
 
+// jnp.argmax's rule: the larger value wins, a tie keeps the smaller column.
+__device__ __forceinline__ bool better(float v, int j, float bv, int bj) {
+  return v > bv || (v == bv && j < bj);
+}
+
 // Where a kernel's feature rows come from, chosen at compile time.  A row
 // source names a column once (``col``) and then reads that column of any
-// point (``at``).
+// point (``at``).  The reads are __ldg: the rows are read-only while a
+// kernel runs, and saying so lets a kernel keep many reads in flight across
+// its own stores.
 //
 // CacheRows, the "precomputed" variant: rows of the f32 feature cache
 // [N, F] = [1, x, triu(x x^T)].
@@ -59,7 +66,7 @@ struct CacheRows {
   };
   __device__ __forceinline__ Col col(int c) const { return {c}; }
   __device__ __forceinline__ float at(Col c, int p) const {
-    return feat[static_cast<size_t>(p) * f + c.c];
+    return __ldg(feat + static_cast<size_t>(p) * f + c.c);
   }
 };
 
@@ -80,13 +87,13 @@ struct BuiltRows {
     int a, b;
   };
   __device__ __forceinline__ Col col(int c) const {
-    const int32_t ab = pairs[c];
+    const int32_t ab = __ldg(pairs + c);
     return {ab >> 16, ab & 0xffff};
   }
   __device__ __forceinline__ float at(Col c, int p) const {
     const float* row = x + static_cast<size_t>(p) * d;
-    const float xa = c.a ? row[c.a - 1] : 1.0f;
-    const float xb = c.b ? row[c.b - 1] : 1.0f;
+    const float xa = c.a ? __ldg(row + c.a - 1) : 1.0f;
+    const float xb = c.b ? __ldg(row + c.b - 1) : 1.0f;
     return __fmul_rn(xa, xb);
   }
 };
@@ -104,7 +111,7 @@ struct Bf16Rows {
   };
   __device__ __forceinline__ Col col(int c) const { return {c}; }
   __device__ __forceinline__ float at(Col c, int p) const {
-    return __bfloat162float(feat[static_cast<size_t>(p) * f + c.c]);
+    return __bfloat162float(__ldg(feat + static_cast<size_t>(p) * f + c.c));
   }
 };
 
@@ -116,15 +123,29 @@ cudaError_t launch_stats(Rows rows, const int32_t* labels, const int32_t* sub,
                          const uint8_t* valid, int n, int f, int k,
                          float* partial, float* stats, cudaStream_t stream);
 
+// fused_assign_tc.cuh.  Kernel A's assign pass with the ll product on the
+// tensor cores: labels and sub-labels of the rows from phi [f, 2k].  One
+// plane: rows and phi rounded to bf16, float32 sums (fused_assign_tc.cu);
+// two planes: each split into a bf16 hi and lo, three products
+// (fused_assign_tc3.cu).  ``phi_t`` is scratch of dpmm_assign_tc_scratch(f,
+// k, Planes) bf16 values.  Instantiated for CacheRows, BuiltRows and
+// Bf16Rows.
+template <int Planes, class Rows>
+cudaError_t launch_assign_tc(Rows rows, const float* phi,
+                             __nv_bfloat16* phi_t, const float* log_w,
+                             const int32_t* seed, int tile_off, int hard,
+                             int tile, int n, int f, int k, int32_t* labels,
+                             int32_t* sub, cudaStream_t stream);
+
 // column_sum.cu.  out rows [0, out_rows) (leading dimension ld_out) = the
 // sums over r of partial [rows, m], in a fixed order.
 cudaError_t launch_reduce_rows(const float* partial, int rows, int m,
                                float* out, int out_rows, int ld_out,
                                cudaStream_t stream);
-// out [out_rows, f] = the column sums of x [n, f] in every row; ``partial``
-// is [ceil(n / column_chunk()), f] scratch.
+// out [out_rows, f] = the column sums of x [n, f] (16-byte aligned) in
+// every row; ``partial`` is [column_partials(n), f] scratch.
 cudaError_t launch_column_sum(const float* x, int n, int f, float* partial,
                               float* out, int out_rows, cudaStream_t stream);
-int column_chunk();
+int column_partials(int n);
 
 }  // namespace dpmm

@@ -1,9 +1,13 @@
-// Kernel A: the per-sweep assignment + statistics pass.
+// Kernel A: the per-sweep assignment + statistics pass, with the exact
+// float32 ll product (ll_precision "highest").  Under "default" / "bf16"
+// (one bf16 pass) and "high" (the three-pass bf16 split) the assign pass is
+// fused_assign_tc.cuh's, on the tensor cores; the C entry points below
+// choose by ``precision`` and launch the statistics pass after either.
 //
 // Replaces dpmmsubclusters_tpu/ops/pallas_sweep.py:518 fused_assign (kernel
-// body _kernel, :264-385) in all five variants: "precomputed", "gaussian",
-// "multinomial", "bfloat16" and "hybrid".  Per point, with feat its feature
-// row:
+// body _kernel, :264-385; the exact dot is :322-323) in all five variants:
+// "precomputed", "gaussian", "multinomial", "bfloat16" and "hybrid".  Per
+// point, with feat its feature row:
 //   ll    = feat @ phi                 phi [F, 2K]: [whole K | delta K]
 //   label = argmax_j (ll_j + log_w_j + G_j)   NaN -> -inf, first max wins,
 //           G_j zeroed in hard mode
@@ -17,9 +21,10 @@
 // the statistics are built in f32 from the raw points x [N, D] kept beside
 // it, so the bf16 rounding never reaches them).  The TPU kernel's selector
 // matmul with bf16 planes exists only to make Mosaic build the Gaussian
-// rows exactly; here a column is one rounded product.  The TPU kernel also
-// casts phi to bf16 for a bf16 cache, a Mosaic workaround: here bf16 is
-// storage only, each value is upcast exactly and all arithmetic is f32.
+// rows exactly; here a column is one rounded product.  The TPU kernel casts
+// phi to bf16 for a bf16 cache at every precision; here that happens under
+// "default" only (fused_assign_tc.cuh), and in this file bf16 is storage:
+// each value is upcast exactly and all arithmetic is f32.
 // The Gumbel noise is the TPU kernel's counter hash, bit for bit: per hash
 // tile of ``tile`` rows the seed is fmix32(seed + (tile_off + row / tile) *
 // 0x9E3779B9) and the counter is (row % tile) * K + j (labels) or
@@ -29,15 +34,16 @@
 // What bounds it on the H100: the ll product is F * 2K * 2 flop per point
 // for at most 4F bytes read -- 128 flop/byte at K=128 from the cache, and
 // 2 * 2145 * 512 flop for 256 bytes of x at D=64 and K=256 -- so it is
-// compute-bound in exact float32 (no tensor cores: 67 TFLOP/s peak).  A
+// compute-bound in exact float32 (outside the tensor cores: 67 TFLOP/s
+// peak).  A
 // built row costs one multiply per feature per block, not per column.  A
 // bf16 cache halves the bytes read (2F per point), which does not move a
 // compute bound; it halves the cache's memory (10M x 64-d: 42.9 GB against
 // 86 GB), so a cache fits the card where the f32 one does not.  The
 // statistics pass is cheaper (see stats_from_labels.cu).
 //
-// Design (right and simple first; no wgmma or TMA yet): a block of 8 warps
-// owns 64 points.  Each warp owns 8 points and each lane the columns
+// Design (the exact path: right and simple, CUDA cores only): a block of 8
+// warps owns 64 points.  Each warp owns 8 points and each lane the columns
 // lane + 32c, so a warp holds whole rows of ll in registers: the Gumbel
 // argmax is a warp shuffle reduction and ll never touches device memory.
 // The product is the register-blocked SGEMM of row_products.cuh (built rows
@@ -64,6 +70,10 @@ constexpr int kWarps = 8;  // the main path's block: 8 warps, 64 points
 constexpr int kBlockPoints = kWarps * kPointsPerWarp;  // 64
 constexpr int kThreads = kWarps * 32;
 constexpr int kWideCPT = 8;  // columns per lane of one pass: 256 per warp
+// the ll product's ``precision`` at the C entry points
+constexpr int kExactF32 = 0;     // this file's kernels
+constexpr int kOneBf16Pass = 1;  // fused_assign_tc.cu
+constexpr int kThreeBf16Passes = 2;  // fused_assign_tc3.cu
 
 // Folds this lane's whole columns j = j0 + lane + 32 c < k of one row into
 // the running Gumbel argmax (bv, bj), then takes the warp's argmax, so every
@@ -297,14 +307,26 @@ cudaError_t launch_assign(Rows rows, const float* phi, const float* delta_t,
 // ``stat_rows`` (the same rows, or for "hybrid" the rows built from x).
 template <class Rows, class StatRows>
 int assign_and_stats(Rows rows, StatRows stat_rows, const uint8_t* valid,
-                     const float* phi, const float* delta_t,
-                     const float* log_w, const int32_t* seed, int tile_off,
-                     int hard, int tile, int n, int f, int k, int warps,
-                     int32_t* labels, int32_t* sub, float* partial,
+                     const float* phi, const float* delta_t, void* phi_t,
+                     int precision, const float* log_w, const int32_t* seed,
+                     int tile_off, int hard, int tile, int n, int f, int k,
+                     int warps, int32_t* labels, int32_t* sub, float* partial,
                      float* stats, cudaStream_t st) {
-  cudaError_t err = launch_assign(rows, phi, delta_t, log_w, seed, tile_off,
-                                  hard, tile, n, f, k, warps, labels, sub,
-                                  st);
+  cudaError_t err;
+  if (precision == kOneBf16Pass || precision == kThreeBf16Passes) {
+    if (warps != kWarps || phi_t == nullptr) return cudaErrorInvalidValue;
+    __nv_bfloat16* staged = static_cast<__nv_bfloat16*>(phi_t);
+    err = precision == kOneBf16Pass
+              ? launch_assign_tc<1>(rows, phi, staged, log_w, seed, tile_off,
+                                    hard, tile, n, f, k, labels, sub, st)
+              : launch_assign_tc<2>(rows, phi, staged, log_w, seed, tile_off,
+                                    hard, tile, n, f, k, labels, sub, st);
+  } else if (precision == kExactF32) {
+    err = launch_assign(rows, phi, delta_t, log_w, seed, tile_off, hard, tile,
+                        n, f, k, warps, labels, sub, st);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_stats(stat_rows, labels, sub, valid, n, f,
                                        k, partial, stats, st));
@@ -314,13 +336,17 @@ int assign_and_stats(Rows rows, StatRows stat_rows, const uint8_t* valid,
 }  // namespace dpmm
 
 // rows: the cache [n, f] when ``pairs`` is null, else the raw points [n, d]
-// with the column map pairs [f] (dpmm_kernels.cuh, BuiltRows).  delta_t
-// [k, f] (phi's delta columns, transposed) is read only when k > 128.
-// ``warps`` is the block size of the assign pass: 8 (64 points), or 4 or 16
-// for the cache at k <= 128.
+// with the column map pairs [f] (dpmm_kernels.cuh, BuiltRows).
+// ``precision`` 0: the exact float32 product; delta_t [k, f] (phi's delta
+// columns, transposed) is read only when k > 128, and ``warps`` is the block
+// size of the assign pass: 8 (64 points), or 4 or 16 for the cache at
+// k <= 128.  ``precision`` 1: one bf16 pass on the tensor cores, 2: the
+// three-pass bf16 split there; phi_t is scratch of dpmm_assign_tc_scratch(f,
+// k, precision) bf16 values, delta_t is not read and ``warps`` is 8.
 extern "C" int dpmm_fused_assign(const float* rows, const int32_t* pairs,
                                  int d, const uint8_t* valid,
                                  const float* phi, const float* delta_t,
+                                 void* phi_t, int precision,
                                  const float* log_w, const int32_t* seed,
                                  int tile_off, int hard, int tile, int n,
                                  int f, int k, int warps, int32_t* labels,
@@ -330,14 +356,14 @@ extern "C" int dpmm_fused_assign(const float* rows, const int32_t* pairs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pairs != nullptr) {
     const BuiltRows built{rows, pairs, d};
-    return assign_and_stats(built, built, valid, phi, delta_t, log_w, seed,
-                            tile_off, hard, tile, n, f, k, warps, labels,
-                            sub, partial, stats, st);
+    return assign_and_stats(built, built, valid, phi, delta_t, phi_t,
+                            precision, log_w, seed, tile_off, hard, tile, n,
+                            f, k, warps, labels, sub, partial, stats, st);
   }
   const CacheRows cache{rows, f};
-  return assign_and_stats(cache, cache, valid, phi, delta_t, log_w, seed,
-                          tile_off, hard, tile, n, f, k, warps, labels, sub,
-                          partial, stats, st);
+  return assign_and_stats(cache, cache, valid, phi, delta_t, phi_t,
+                          precision, log_w, seed, tile_off, hard, tile, n, f,
+                          k, warps, labels, sub, partial, stats, st);
 }
 
 // feat: the bf16 cache [n, f].  raw null: "bfloat16", the statistics come
@@ -346,8 +372,9 @@ extern "C" int dpmm_fused_assign(const float* rows, const int32_t* pairs,
 extern "C" int dpmm_fused_assign_bf16(const void* feat, const float* raw,
                                       const int32_t* pairs, int d,
                                       const uint8_t* valid, const float* phi,
-                                      const float* delta_t,
-                                      const float* log_w, const int32_t* seed,
+                                      const float* delta_t, void* phi_t,
+                                      int precision, const float* log_w,
+                                      const int32_t* seed,
                                       int tile_off, int hard, int tile, int n,
                                       int f, int k, int32_t* labels,
                                       int32_t* sub, float* partial,
@@ -357,9 +384,10 @@ extern "C" int dpmm_fused_assign_bf16(const void* feat, const float* raw,
   const Bf16Rows cache{static_cast<const __nv_bfloat16*>(feat), f};
   if (raw != nullptr)
     return assign_and_stats(cache, BuiltRows{raw, pairs, d}, valid, phi,
-                            delta_t, log_w, seed, tile_off, hard, tile, n, f,
-                            k, kWarps, labels, sub, partial, stats, st);
-  return assign_and_stats(cache, cache, valid, phi, delta_t, log_w, seed,
-                          tile_off, hard, tile, n, f, k, kWarps, labels, sub,
-                          partial, stats, st);
+                            delta_t, phi_t, precision, log_w, seed, tile_off,
+                            hard, tile, n, f, k, kWarps, labels, sub, partial,
+                            stats, st);
+  return assign_and_stats(cache, cache, valid, phi, delta_t, phi_t, precision,
+                          log_w, seed, tile_off, hard, tile, n, f, k, kWarps,
+                          labels, sub, partial, stats, st);
 }

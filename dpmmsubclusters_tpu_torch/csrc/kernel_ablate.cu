@@ -16,7 +16,8 @@
 // The hash is kernel A's (dpmm_kernels.cuh) with tile_off = 0: per hash tile
 // i of ``tile`` rows the seed is fmix32(seed + i * 0x9E3779B9).  The stages:
 //   DMA_ONLY   stats row 0 = the column sums of x (kernel C, column_sum.cu)
-//   DOT_ONLY   stats row 0, columns [0, 3K) = the column sums of x @ phi
+//   DOT_ONLY   stats row 0, columns [0, 3K) = the column sums of x @ phi,
+//              computed as what they are: colsum(x) @ phi
 //   STATS_RAW  every one of the 2K stats rows = the column sums of x (the
 //              TPU's ones-weight dot; here kernel C's reduction again)
 //   STATS      stats = [LEFT K | RIGHT K] x F sums of the rows by (side,
@@ -32,15 +33,18 @@
 // What bounds it on the H100: the ll product, 2 * N * F * (K + 2) flop for
 // what the function needs (the K whole columns and the label's left and
 // right columns): 1.53e11 flop at 1M x 561 and K = 128, 2.29 ms at the fp32
-// peak of 67 TFLOP/s (no tensor cores), against 0.70 ms for its bytes.
+// peak of 67 TFLOP/s, against 0.70 ms for its bytes.  The product is the
+// exact float32 one: the ablation is that of kernel A under ll_precision
+// "highest".  DOT_ONLY and DMA_ONLY are bound by the one read of x.
 //
 // Design: kernel A's block (row_products.cuh, 8 warps of 8 points, one
 // lane per column lane + 32c) in two passes: the K whole columns, a Gumbel
 // argmax by warp shuffles, then under SUB the 2K [left | right] columns,
 // each point's pair one shuffle away.  It computes all 2K sub-columns, as
-// the TPU kernel did.  DOT_ONLY sums the block's 64 rows of each column in
-// registers, then the 8 warps' sums in order, and column_sum.cu's
-// fixed-order reduction adds the blocks' partial rows.  K <= 128.
+// the TPU kernel did.  DOT_ONLY launches no product over the points: its
+// sums are linear in x, so kernel C's reduction (column_sum.cu) sums x's
+// columns in one read and a small kernel multiplies the [F] sums by phi
+// [F, 3K], each column's terms added in a fixed order.  K <= 128.
 #include "row_products.cuh"
 
 #include <cmath>
@@ -66,7 +70,6 @@ template <int CPT>
 union AblateSmem {
   Stage<CPT, kWarps> whole;        // pass 1: the K whole columns
   Stage<2 * CPT, kWarps> lr;       // pass 2: the 2K [left | right] columns
-  float red[kWarps][3 * 32 * CPT];  // DOT_ONLY: each warp's column sums
 };
 
 // jnp.argmax's order with NaN as the maximum; ties keep the smaller column.
@@ -93,7 +96,7 @@ ablate_kernel(const float* __restrict__ x, const float* __restrict__ phi,
               const float* __restrict__ loglrw,
               const int32_t* __restrict__ seed_ptr, int tile, int n, int f,
               int k, int sink, int32_t* __restrict__ labels,
-              int32_t* __restrict__ sub, float* __restrict__ dot_partial) {
+              int32_t* __restrict__ sub) {
   __shared__ __align__(16) AblateSmem<CPT> sm;
   const CacheRows rows{x, f};
   const int lane = threadIdx.x & 31;
@@ -103,39 +106,6 @@ ablate_kernel(const float* __restrict__ x, const float* __restrict__ phi,
 
   float ll[kPointsPerWarp][CPT];
   row_products<CPT, kWarps>(rows, phi, ldp, 0, k, row0, n, f, sm.whole, ll);
-
-  if constexpr ((Stages & kDotOnly) != 0) {
-    // rows past n are 0; the block's column sums in row order
-    float cs[CPT];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      cs[c] = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kPointsPerWarp; ++r) cs[c] += ll[r][c];
-    }
-    float lr[kPointsPerWarp][2 * CPT];
-    row_products<2 * CPT, kWarps>(rows, phi, ldp, k, 2 * k, row0, n, f, sm.lr,
-                                  lr);
-    __syncthreads();  // every warp is done with the stages red reuses
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) sm.red[warp][lane + 32 * c] = cs[c];
-#pragma unroll
-    for (int c = 0; c < 2 * CPT; ++c) {
-      float s = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kPointsPerWarp; ++r) s += lr[r][c];
-      sm.red[warp][32 * CPT + lane + 32 * c] = s;
-    }
-    __syncthreads();
-    for (int col = threadIdx.x; col < 3 * k; col += kThreads) {
-      const int idx = col < k ? col : 32 * CPT + (col - k);
-      float s = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += sm.red[w][idx];
-      dot_partial[static_cast<size_t>(blockIdx.x) * 3 * k + col] = s;
-    }
-    return;
-  }
 
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
   int lab[kPointsPerWarp];
@@ -209,21 +179,46 @@ ablate_kernel(const float* __restrict__ x, const float* __restrict__ phi,
   }
 }
 
+constexpr int kDotCols = 32;  // phi columns per block of the DOT_ONLY product
+constexpr int kDotWays = 32;  // features summed side by side
+
+// out[col] = sum over r of w[r] * phi[r, col] for col < m (phi [rows, m]):
+// way w adds the features w, w + 32, ... in order, then one thread adds the
+// 32 ways in order.
+__global__ void __launch_bounds__(kDotCols * kDotWays)
+colsum_dot_kernel(const float* __restrict__ w, const float* __restrict__ phi,
+                  int rows, int m, float* __restrict__ out) {
+  __shared__ float part[kDotWays][kDotCols];
+  const int col = blockIdx.x * kDotCols + threadIdx.x;
+  const int way = threadIdx.y;
+  float s = 0.0f;
+  if (col < m) {
+#pragma unroll 4
+    for (int r = way; r < rows; r += kDotWays)
+      s = fmaf(w[r], phi[static_cast<size_t>(r) * m + col], s);
+  }
+  part[way][threadIdx.x] = s;
+  __syncthreads();
+  if (way != 0 || col >= m) return;
+  float t = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kDotWays; ++i) t += part[i][threadIdx.x];
+  out[col] = t;
+}
+
 template <unsigned Stages>
 cudaError_t launch_ablate(const float* x, const float* phi,
                           const float* log_w, const float* loglrw,
                           const int32_t* seed, int tile, int n, int f, int k,
                           int sink, int32_t* labels, int32_t* sub,
-                          float* dot_partial, cudaStream_t st) {
+                          cudaStream_t st) {
   const int blocks = (n + kBlockPoints - 1) / kBlockPoints;
   if (k <= 32)
     ablate_kernel<Stages, 1><<<blocks, kThreads, 0, st>>>(
-        x, phi, log_w, loglrw, seed, tile, n, f, k, sink, labels, sub,
-        dot_partial);
+        x, phi, log_w, loglrw, seed, tile, n, f, k, sink, labels, sub);
   else
     ablate_kernel<Stages, 4><<<blocks, kThreads, 0, st>>>(
-        x, phi, log_w, loglrw, seed, tile, n, f, k, sink, labels, sub,
-        dot_partial);
+        x, phi, log_w, loglrw, seed, tile, n, f, k, sink, labels, sub);
   return cudaGetLastError();
 }
 
@@ -248,8 +243,7 @@ extern "C" int dpmm_kernel_ablate(const float* x, const uint8_t* valid,
   const unsigned set = static_cast<unsigned>(stages);
   auto launch = [&](auto kernel_stages) {
     return launch_ablate<decltype(kernel_stages)::value>(
-        x, phi, log_w, loglrw, seed, tile, n, f, k, sink, labels, sub,
-        partial, st);
+        x, phi, log_w, loglrw, seed, tile, n, f, k, sink, labels, sub, st);
   };
   using S0 = std::integral_constant<unsigned, 0u>;
   cudaError_t err;
@@ -259,11 +253,14 @@ extern "C" int dpmm_kernel_ablate(const float* x, const uint8_t* valid,
           launch_column_sum(x, n, f, partial, stats, 1, st));
     case kDotOnly: {
       if (3 * k > f) return cudaErrorInvalidValue;
-      err = launch(std::integral_constant<unsigned, kDotOnly>{});
+      // the column sums go behind the reduction's partial rows
+      float* colsum = partial + static_cast<size_t>(column_partials(n)) * f;
+      err = launch_column_sum(x, n, f, partial, colsum, 1, st);
       if (err != cudaSuccess) return static_cast<int>(err);
-      const int blocks = (n + kBlockPoints - 1) / kBlockPoints;
-      return static_cast<int>(
-          launch_reduce_rows(partial, blocks, 3 * k, stats, 1, f, st));
+      const dim3 block(kDotCols, kDotWays);
+      colsum_dot_kernel<<<(3 * k + kDotCols - 1) / kDotCols, block, 0, st>>>(
+          colsum, phi, f, 3 * k, stats);
+      return static_cast<int>(cudaGetLastError());
     }
     case 0u:
       return static_cast<int>(launch(S0{}));
@@ -301,9 +298,9 @@ extern "C" long long dpmm_ablate_scratch(int n, int f, int k, int stages) {
   switch (static_cast<unsigned>(stages)) {
     case kDmaOnly:
     case kStatsRaw:
-      return (nl + column_chunk() - 1) / column_chunk() * f;
+      return static_cast<long long>(column_partials(n)) * f;
     case kDotOnly:
-      return (nl + kBlockPoints - 1) / kBlockPoints * 3 * k;
+      return static_cast<long long>(column_partials(n)) * f + f;
     case 0u:
       return 1;
     default:

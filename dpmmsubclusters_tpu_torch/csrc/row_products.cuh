@@ -1,5 +1,6 @@
-// The register-blocked row x phi product that kernels A (fused_assign.cu)
-// and D (kernel_ablate.cu) share, and the argmax tie rule they both use.
+// The register-blocked, exact float32 row x phi product that kernels A
+// (fused_assign.cu, ll_precision "highest") and D (kernel_ablate.cu) share.
+// Kernel A's other precisions take the tensor cores (fused_assign_tc.cuh).
 //
 // A block of ``Warps`` warps owns Warps * 8 points.  Each warp owns 8 points
 // and each lane the columns lane + 32c, so a warp holds whole rows of the
@@ -38,11 +39,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                "l"(src), "r"(ok ? 4 : 0)
                : "memory");
-}
-
-// jnp.argmax's rule: the larger value wins, a tie keeps the smaller column.
-__device__ __forceinline__ bool better(float v, int j, float bv, int bj) {
-  return v > bv || (v == bv && j < bj);
 }
 
 // acc[r][c] = row(row0 + 8 warp + r) . phi[:, col0 + lane + 32 c] for the

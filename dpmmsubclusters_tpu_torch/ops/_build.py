@@ -30,13 +30,17 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # rows, pairs, d, valid, phi, delta_t, log_w, seed, tile_off, hard,
-    # tile, n, f, k, warps, labels, sub, partial, stats, stream
-    "dpmm_fused_assign": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _P, _P, _P, _P, _P],
-    # feat, raw, pairs, d, then as dpmm_fused_assign from valid on
-    "dpmm_fused_assign_bf16": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # rows, pairs, d, valid, phi, delta_t, phi_t, precision, log_w, seed,
+    # tile_off, hard, tile, n, f, k, warps, labels, sub, partial, stats,
+    # stream
+    "dpmm_fused_assign": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # feat, raw, pairs, d, then as dpmm_fused_assign from valid on, without
+    # warps
+    "dpmm_fused_assign_bf16": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # f, k, planes
+    "dpmm_assign_tc_scratch": [_I, _I, _I],
     # rows, pairs, d, labels, sub, valid, n, f, k, partial, stats, stream
     "dpmm_stats_from_labels": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                                _P],
@@ -45,7 +49,8 @@ _SIGNATURES = {
     "dpmm_stats_chunk": [],
     # x, n, f, partial, out, out_rows, stream
     "dpmm_column_sum": [_P, _I, _I, _P, _P, _I, _P],
-    "dpmm_column_chunk": [],
+    # n
+    "dpmm_column_partials": [_I],
     # x, valid, phi, log_w, loglrw, seed, tile, n, f, k, stages, sink,
     # labels, sub, partial, stats, stream
     "dpmm_kernel_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -55,7 +60,8 @@ _SIGNATURES = {
     "dpmm_error_string": [_I],
 }
 _RESTYPES = {"dpmm_error_string": ctypes.c_char_p,
-             "dpmm_ablate_scratch": ctypes.c_longlong}
+             "dpmm_ablate_scratch": ctypes.c_longlong,
+             "dpmm_assign_tc_scratch": ctypes.c_longlong}
 
 
 def _nvcc() -> str:

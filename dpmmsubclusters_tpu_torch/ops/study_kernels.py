@@ -7,9 +7,10 @@ plain PyTorch version.
   of ``benchmarks/kernel_tile_study.py:30`` ``variant`` (the TPU study's
   full modes are kernel A, :func:`.sweep_kernels.fused_assign`).
 * :func:`kernel_ablate` (kernel D, ``csrc/kernel_ablate.cu``) -- the
-  round-3 assignment kernel (phi ``[F, 3K]`` = ``[whole | left | right]``)
-  with each stage gated.  Replaces ``benchmarks/kernel_ablate.py:141``
-  ``variant``.
+  round-3 assignment kernel (phi ``[F, 3K]`` = ``[whole | left | right]``,
+  the exact float32 product) with each stage gated; its ``dot_only`` set is
+  kernel C's column sums times phi.  Replaces
+  ``benchmarks/kernel_ablate.py:141`` ``variant``.
 
 As in :mod:`.sweep_kernels`, a CUDA tensor launches the kernel (or raises),
 a CPU tensor runs the plain version, and each wrapper counts its launches
@@ -80,7 +81,7 @@ def column_sum(x, out=None):
     _check_cuda("column_sum", x=(x, torch.float32, (n, f)),
                 out=(out, torch.float32, (out.shape[0], f)))
     lib = _build.load()
-    partial = torch.empty((-(-n // lib.dpmm_column_chunk()), f),
+    partial = torch.empty((lib.dpmm_column_partials(n), f),
                           dtype=torch.float32, device=x.device)
     rc = lib.dpmm_column_sum(x.data_ptr(), n, f, partial.data_ptr(),
                              out.data_ptr(), out.shape[0],
@@ -164,20 +165,23 @@ def kernel_ablate(x, valid, phi, log_w, loglrw, seed, *, tile: int = 512,
     if key == "dot_only" and 3 * k > f:
         raise ValueError(f"dot_only needs 3K <= F; K={k}, F={f}")
     dev = x.device
-    if not torch.is_tensor(seed):
-        seed = torch.tensor([int(seed)], dtype=torch.int32, device=dev)
-    _check_cuda("kernel_ablate", x=(x, torch.float32, (n, f)),
-                valid=(valid, torch.bool, (n,)),
-                phi=(phi, torch.float32, (f, 3 * k)),
-                log_w=(log_w, torch.float32, (k,)),
-                loglrw=(loglrw, torch.float32, (2, k)),
-                seed=(seed, torch.int32, (1,)))
+    checks = dict(x=(x, torch.float32, (n, f)),
+                  valid=(valid, torch.bool, (n,)),
+                  phi=(phi, torch.float32, (f, 3 * k)),
+                  log_w=(log_w, torch.float32, (k,)),
+                  loglrw=(loglrw, torch.float32, (2, k)))
+    if key in ("dma_only", "dot_only"):
+        seed = None     # column sums only: no hash, so no seed on the card
+    else:
+        if not torch.is_tensor(seed):
+            seed = torch.tensor([int(seed)], dtype=torch.int32, device=dev)
+        checks["seed"] = (seed, torch.int32, (1,))
+    _check_cuda("kernel_ablate", **checks)
     # the kernel's label and side stores: the outputs under "write";
     # scratch for the statistics pass under "stats" alone; else the
     # zero outputs themselves, stored to only if sink (0) were set
     new = torch.empty if "write" in stages else torch.zeros
-    labels = new(n, dtype=torch.int32, device=dev)
-    sub = new(n, dtype=torch.int32, device=dev)
+    labels, sub = new((2, n), dtype=torch.int32, device=dev)
     lab_st, sub_st = labels, sub
     if "stats" in stages and "write" not in stages:
         lab_st = torch.empty(n, dtype=torch.int32, device=dev)
@@ -190,7 +194,8 @@ def kernel_ablate(x, valid, phi, log_w, loglrw, seed, *, tile: int = 512,
                           dtype=torch.float32, device=dev)
     rc = lib.dpmm_kernel_ablate(
         x.data_ptr(), valid.data_ptr(), phi.data_ptr(), log_w.data_ptr(),
-        loglrw.data_ptr(), seed.data_ptr(), int(tile), n, f, k, mask, 0,
+        loglrw.data_ptr(), None if seed is None else seed.data_ptr(),
+        int(tile), n, f, k, mask, 0,
         lab_st.data_ptr(), sub_st.data_ptr(), partial.data_ptr(),
         stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "kernel_ablate")

@@ -15,8 +15,9 @@ Both take flat ``int32 [N]`` label streams and, as the JAX functions do, a
 * ``"gaussian"``: raw points ``[N, D]``, feature rows ``[1, x, triu(x x^T)]``
   (F = 1 + D + D(D+1)/2) built inside the kernel;
 * ``"multinomial"``: raw counts ``[N, D]``, feature rows ``[1, x]``;
-* ``"bfloat16"``: the bf16 feature cache ``[N, F]``, upcast exactly (bf16 is
-  storage only; all arithmetic is f32);
+* ``"bfloat16"``: the bf16 feature cache ``[N, F]``, upcast exactly (the
+  statistics and, under ``ll_precision="highest"``, the ll product are f32
+  arithmetic on the upcast values);
 * ``"hybrid"`` (kernel A only): the bf16 cache feeds the ll product and the
   statistics are the Gaussian rows built from the raw points ``x_raw [N,
   D]`` passed beside it.  Kernel B on a hybrid container is the
@@ -25,6 +26,18 @@ Both take flat ``int32 [N]`` label streams and, as the JAX functions do, a
 The tensor's device picks the path: a CUDA tensor launches the kernel (or
 raises), a CPU tensor runs the plain version.  Each wrapper counts its
 kernel launches per variant in ``<wrapper>.launches``.
+
+Kernel A's ll product ``rows @ phi_mat`` takes the config's ``ll_precision``
+(:func:`ll_product` is its plain form), with the JAX package's meaning:
+``"default"`` and ``"bf16"`` round rows and phi to bf16 (to nearest even)
+and sum the exact products in float32 -- on the card one pass of the tensor
+cores; ``"high"`` is the float32-faithful three-pass split (XLA's bf16x3:
+rows and phi each as a bf16 ``hi`` plus a bf16 ``lo``, and ``hi*hi + hi*lo
++ lo*hi``), three passes of the tensor cores (both
+``csrc/fused_assign_tc.cuh``; those launches are also counted in
+``fused_assign.tensor_core_launches``); ``"highest"`` is exact float32
+(``csrc/fused_assign.cu``).  The statistics are exact float32 on every
+setting.
 
 The Gumbel noise is the TPU kernel's counter hash, reproduced bit for bit
 (:func:`gumbel_noise`), so fed the same integer seed, ``tile_off`` and hash
@@ -50,6 +63,10 @@ VARIANTS = ("precomputed", "gaussian", "multinomial", "bfloat16", "hybrid")
 CTA_POINTS = (32, 64, 128)
 STATS_VARIANTS = ("precomputed", "gaussian", "multinomial", "bfloat16")
 _BF16 = ("bfloat16", "hybrid")
+LL_PRECISIONS = ("default", "high", "highest", "bf16")
+# the C entry points' ``precision``: 0 the exact kernel, else the planes of
+# the tensor-core kernel (1: one bf16 pass, 2: the three-pass split)
+_PLANES = {"highest": 0, "default": 1, "bf16": 1, "high": 2}
 _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
 
 
@@ -147,9 +164,31 @@ def stats_from_labels_reference(x, labels, sub, valid, k: int,
     return out
 
 
+def ll_product(rows, phi_mat, ll_precision: str = "highest"):
+    """Plain form of kernel A's ll product: float32 ``rows [R, F] @ phi_mat
+    [F, 2K]``; under ``"default"`` / ``"bf16"`` both operands are first
+    rounded to bf16, under ``"high"`` each is split into a bf16 ``hi`` and
+    the bf16 rounding ``lo`` of the rest and ``hi @ hi + hi @ lo + lo @ hi``
+    is summed (the products of bf16 values are exact in float32, so only
+    the order of the float32 sums is the implementation's own)."""
+    if ll_precision not in LL_PRECISIONS:
+        raise ValueError(f"ll_precision must be one of {LL_PRECISIONS}; "
+                         f"got {ll_precision!r}")
+    planes = _PLANES[ll_precision]
+    if planes == 0:
+        return rows @ phi_mat
+    r_hi, p_hi = rows.bfloat16().float(), phi_mat.bfloat16().float()
+    if planes == 1:
+        return r_hi @ p_hi
+    r_lo = (rows - r_hi).bfloat16().float()
+    p_lo = (phi_mat - p_hi).bfloat16().float()
+    return (r_hi @ p_lo + r_lo @ p_hi) + r_hi @ p_hi
+
+
 def fused_assign_reference(x, valid, phi_mat, log_w, seed, tile_off=0,
                            hard=False, *, tile: int = 512,
-                           family_name: str = "precomputed", x_raw=None):
+                           family_name: str = "precomputed", x_raw=None,
+                           ll_precision: str = "highest"):
     """Plain version of kernel A.  Returns ``(labels int32 [N], sub int32
     [N], stats float32 [2K, F] rows [LEFT | RIGHT])``."""
     n = x.shape[0]
@@ -160,7 +199,8 @@ def fused_assign_reference(x, valid, phi_mat, log_w, seed, tile_off=0,
     noise = 0.0 if hard else 1.0
     for p0 in range(0, n, _PLAIN_ROWS):
         p1 = min(n, p0 + _PLAIN_ROWS)
-        ll = feature_rows(x[p0:p1], family_name) @ phi_mat      # [R, 2K]
+        ll = ll_product(feature_rows(x[p0:p1], family_name), phi_mat,
+                        ll_precision)                           # [R, 2K]
         logits = ll[:, :k] + log_w[None, :]
         logits = torch.where(torch.isnan(logits), float("-inf"), logits)
         rows = torch.arange(p0, p1, dtype=torch.int64, device=x.device)
@@ -274,7 +314,7 @@ def _launch_key(family_name: str, cta_points: int) -> str:
 def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
                  hard: bool = False, *, tile: int = 512,
                  family_name: str = "precomputed", x_raw=None,
-                 cta_points: int = 64):
+                 cta_points: int = 64, ll_precision: str = "highest"):
     """One sweep's assignment + statistics pass.
 
     x       [N, F] float32 feature cache ("precomputed"), [N, D] raw
@@ -289,25 +329,37 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
             the sweep needs no host sync to draw it)
     hard    zero the label noise (sub-labels are always sampled)
     tile    rows per hash tile (the TPU kernel's tile; 512 by default)
-    cta_points  points per CUDA block of the assign pass: 64, or 32 or 128
-            for "precomputed" at K <= 128 (the results do not depend on it;
-            launches count under "precomputed cta=32" and "... cta=128")
+    cta_points  points per CUDA block of the exact float32 assign pass: 64,
+            or 32 or 128 for "precomputed" at K <= 128 under "highest" (the
+            results do not depend on it; launches count under "precomputed
+            cta=32" and "... cta=128")
+    ll_precision  the ll product (module note): "default" / "bf16" one bf16
+            pass on the tensor cores, "high" the three-pass split there,
+            "highest" exact float32; the function's default is "highest",
+            the config's "default"
 
     Returns ``(labels int32 [N], sub int32 [N], stats float32 [2K, F])``
-    with stats rows ``[LEFT K | RIGHT K]``.  The ll product is exact float32
-    whatever ``ll_precision`` the config names.
+    with stats rows ``[LEFT K | RIGHT K]``.
     """
     _check_variant(family_name, VARIANTS, x_raw)
+    if ll_precision not in LL_PRECISIONS:
+        raise ValueError(f"ll_precision must be one of {LL_PRECISIONS}; "
+                         f"got {ll_precision!r}")
+    planes = _PLANES[ll_precision]
+    tensor_cores = planes > 0
     if cta_points not in CTA_POINTS or (cta_points != 64 and (
-            family_name != "precomputed" or log_w.shape[0] > 128)):
+            family_name != "precomputed" or log_w.shape[0] > 128
+            or tensor_cores)):
         raise ValueError(f"cta_points={cta_points}: 64 for every variant, "
-                         "32 or 128 only for 'precomputed' at K <= 128")
+                         "32 or 128 only for 'precomputed' at K <= 128 under "
+                         "ll_precision='highest'")
     if x.device.type == "cpu":
         if torch.is_tensor(seed):
             seed = int(seed.reshape(-1)[0])
         return fused_assign_reference(x, valid, phi_mat, log_w, seed,
                                       tile_off, hard, tile=tile,
-                                      family_name=family_name, x_raw=x_raw)
+                                      family_name=family_name, x_raw=x_raw,
+                                      ll_precision=ll_precision)
     n = x.shape[0]
     k = log_w.shape[0]
     hybrid = family_name == "hybrid"
@@ -325,16 +377,23 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
                 phi_mat=(phi_mat, torch.float32, (f, 2 * k)),
                 log_w=(log_w, torch.float32, (k,)),
                 seed=(seed, torch.int32, (1,)))
-    # above one pass of 256 columns (K > 128) the kernel dots each point's
-    # row with its label's delta column, read as a row of this [K, F] copy
-    delta_t = phi_mat[:, k:].T.contiguous()
+    lib = _build.load()
+    delta_t = phi_t = None
+    if tensor_cores:
+        # scratch for phi as the tensor-core pass stages it (its bf16 tiles)
+        phi_t = torch.empty(lib.dpmm_assign_tc_scratch(f, k, planes),
+                            dtype=torch.bfloat16, device=x.device)
+    elif k > 128:
+        # above one pass of 256 columns the exact kernel dots each point's
+        # row with its label's delta column, a row of this [K, F] copy
+        delta_t = phi_mat[:, k:].T.contiguous()
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
     sub = torch.empty(n, dtype=torch.int32, device=x.device)
     stats = torch.empty((2 * k, f), dtype=torch.float32, device=x.device)
     partial = _stats_scratch(n, k, f, x.device)
-    lib = _build.load()
-    args = (valid.data_ptr(), phi_mat.data_ptr(), delta_t.data_ptr(),
-            log_w.data_ptr(), seed.data_ptr(), int(tile_off), int(bool(hard)),
+    args = (valid.data_ptr(), phi_mat.data_ptr(), _ptr(delta_t), _ptr(phi_t),
+            planes, log_w.data_ptr(), seed.data_ptr(), int(tile_off),
+            int(bool(hard)),
             int(tile), n, f, k)
     outs = (labels.data_ptr(), sub.data_ptr(), partial.data_ptr(),
             stats.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
@@ -346,6 +405,8 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
                                    cta_points // 8, *outs)
     _build.check(rc, "fused_assign")
     fused_assign.launches[_launch_key(family_name, cta_points)] += 1
+    if tensor_cores:
+        fused_assign.tensor_core_launches[family_name] += 1
     return labels, sub, stats
 
 
@@ -354,6 +415,7 @@ def reset_launches() -> None:
     fused_assign.launches = dict.fromkeys(
         VARIANTS + tuple(_launch_key("precomputed", c) for c in CTA_POINTS
                          if c != 64), 0)
+    fused_assign.tensor_core_launches = dict.fromkeys(VARIANTS, 0)
     stats_from_labels.launches = dict.fromkeys(STATS_VARIANTS, 0)
 
 

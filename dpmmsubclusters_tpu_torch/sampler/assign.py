@@ -48,12 +48,14 @@ def _variant(points, family, x_is_features: bool) -> str:
 
 def assign_and_stats(points, valid, phi, log_w, log_lrw, seed, hard,
                      tile_off: int = 0, tile: int = HASH_TILE, *,
-                     family=None, x_is_features: bool = True):
+                     family=None, x_is_features: bool = True,
+                     ll_precision: str = "highest"):
     """One sweep's labels, sub-labels and statistics.
 
     points: a points container (module note) of ``family``; valid bool
     [N]; phi [K, 3, F]; log_w [K]; log_lrw [K, 2]; seed int or int32 [1]
-    device tensor; hard bool.
+    device tensor; hard bool; ll_precision: the ll product's precision
+    (``DPMMConfig.ll_precision``).
     Returns ``(labels int32 [N], sublabels int32 [N], stats_lr [K, 2, F])``.
     """
     k = phi.shape[0]
@@ -63,7 +65,7 @@ def assign_and_stats(points, valid, phi, log_w, log_lrw, seed, hard,
         points["feat"] if hybrid else points, valid,
         _delta_phi(phi, log_lrw), log_w.contiguous(), seed, tile_off, hard,
         tile=tile, family_name=variant,
-        x_raw=points["raw"] if hybrid else None,
+        x_raw=points["raw"] if hybrid else None, ll_precision=ll_precision,
     )
     return labels, sub, torch.stack([stats2k[:k], stats2k[k:]], dim=1)
 

@@ -111,7 +111,7 @@ def make_sweep(family, cfg):
             points, valid, table["params"]["phi"], table["log_weights"],
             torch.log(torch.clamp(table["lr_weights"], min=1e-37)),
             seed, bool(final or cfg.hard_clustering), family=family,
-            x_is_features=x_is_features,
+            x_is_features=x_is_features, ll_precision=cfg.ll_precision,
         )
         table = _set_stats(family, table, assign_mod.lr_to_full(stats_lr))
 
