@@ -5,15 +5,20 @@ and variant against its plain PyTorch version at the shapes the fits give it
 "default", one bf16 pass on the tensor cores, with the two times side by
 side, and at two shapes under "high", the three-pass split; and the
 raw-point and bf16 variants against the f32 cache variant bit for bit
-under both), runs kernel E's build gate (a well-formed kernel builds and
-runs, its ill-formed twin makes the build raise), checks the kernel studies'
+under both; kernel B under uniform labels, every point in one key and the
+labels of one kernel A call, its key sort equal to the plain sort, and its
+output on a fixed input equal to the earlier kernel's by sha256), runs
+kernel E's build gate (a well-formed kernel builds and runs, its
+ill-formed twin makes the build raise), checks the kernel studies'
 kernels at their full sizes (kernel C's column sums and kernel A's 32-,
 64- and 128-point blocks at 1M x 640, K=128, whose labels must not depend
 on the block; each of kernel D's 8 stage sets at 1M x 561, K=128), runs
-the port's bench entry points (the tile study, the ablation, and the
-flagship bench, which must reach K=64 and whose one profiled sweep must
-name kernel A), then drives ``fit`` through every path of the port, at the
-config's default ll_precision ("default") unless it names another:
+the card-only tests (tests/test_torch_card_*.py, in a subprocess with no
+conftest; every one must pass), runs the port's bench entry points (the
+tile study, the ablation, and the flagship bench, which must reach K=64
+and whose one profiled sweep must name kernel A), then drives ``fit``
+through every path of the port, at the config's default ll_precision
+("default") unless it names another:
 
 * Gaussian with the f32 feature cache: the 4-corner gate, the 200k x 32-d
   recovery gate and the 1M x 32-d flagship (also under "highest");
@@ -31,6 +36,12 @@ and profiles 8 steady sweeps of the flagship fit and of each 10M x 64-d fit
 with torch.profiler.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-b    # kernel B alone: digests and times
+
+``--kernel-b`` prints kernel B's digests and its time in each variant under
+the three label sets (with the device time of each of its kernels), one
+JSON line each, with whichever dpmmsubclusters_tpu_torch sits beside this
+file: a copy in another tree times that tree.
 
 Any failed check raises (non-zero exit).  On success the line before the
 last is a JSON object describing each kernel variant (launches in the fit
@@ -44,8 +55,10 @@ from __future__ import annotations
 
 import copy
 import gc
+import hashlib
 import json
 import pathlib
+import re
 import sys
 import tempfile
 import time
@@ -307,50 +320,239 @@ def check_assign_both(torch, sk, out: dict, key: str, name: str, case: Case,
     out[key + " highest"] = hi
 
 
+def plain_stats_f64(torch, sk, x, labels, sub, valid, k: int, family: str):
+    """The plain version's sums, and the sums of the terms' magnitudes,
+    taken in float64: the reference where one key holds all N points (a
+    float32 sum of N terms rounds by up to about N * 2^-24 of their
+    magnitudes in any order, index_add_'s included)."""
+    keys = sk.stat_keys(labels, sub, valid, k)
+    f = sk.feature_dim(family, x.shape[1])
+    out = torch.zeros((2, 2 * k + 1, f), dtype=torch.float64, device=x.device)
+    for p0 in range(0, x.shape[0], 1 << 16):
+        rows = sk.feature_rows(x[p0:p0 + (1 << 16)], family).double()
+        out[0].index_add_(0, keys[p0:p0 + (1 << 16)], rows)
+        out[1].index_add_(0, keys[p0:p0 + (1 << 16)], rows.abs())
+    return out[0, :2 * k], out[1, :2 * k]
+
+
 def check_stats(torch, sk, name: str, case: Case, smi: str) -> dict:
-    """Kernel B against its plain version on random labels: rtol 1e-4 /
-    atol 1e-3, two launches equal."""
+    """Kernel B against its plain version under each of stat_labelings'
+    label sets (uniform, one key, fit): rtol 1e-4 / atol 1e-3 (one key,
+    where each sum has N terms: against the plain sums in float64, within
+    1e-5 of the terms' magnitudes), two launches equal, its key sort equal
+    to the plain sort; each set timed.  The report keeps the uniform
+    labels' numbers."""
     x, valid, k = case.x, case.valid, case.k
     n = x.shape[0]
-    labels = torch.randint(0, k, (n,), generator=case.gen, device=x.device,
-                           dtype=torch.int32)
-    sub = torch.randint(0, 2, (n,), generator=case.gen, device=x.device,
-                        dtype=torch.int32)
+    times, errs = {}, {}
+    for what, (labels, sub) in stat_labelings(torch, sk, case).items():
+        def run():
+            return sk.stats_from_labels(x, labels, sub, valid, k, case.family)
 
-    def run():
-        return sk.stats_from_labels(x, labels, sub, valid, k, case.family)
-
-    def plain():
-        return sk.stats_from_labels_reference(x, labels, sub, valid, k,
-                                              case.family)
-
-    stb = run()
-    err = close(torch, stb, plain(), 1e-4, 1e-3)
-    assert torch.equal(stb, run()), f"{name} is not deterministic"
-    ms = time_ms(torch, run)
-    plain_ms = time_ms(torch, plain)
-    f = stb.shape[1]
-    library_ms = None
+        stb = run()
+        if what == "one key":
+            want, mag = plain_stats_f64(torch, sk, x, labels, sub, valid, k,
+                                        case.family)
+            errs[what] = close_sums(torch, stb.double(), want, mag)
+        else:
+            errs[what] = close(torch, stb, sk.stats_from_labels_reference(
+                x, labels, sub, valid, k, case.family), 1e-4, 1e-3)
+        assert torch.equal(stb, run()), f"{name} is not deterministic"
+        got, want = (sk.key_sort(labels, sub, valid, k),
+                     sk.key_sort_reference(labels, sub, valid, k))
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), \
+            f"{name}: the key sort differs from the plain sort ({what})"
+        times[what] = time_ms(torch, run)
+        log(f"{name}, {what} labels ({key_profile(torch, labels, sub, valid, k)}"
+            f"): {times[what]:.3f} ms; key sort equals the plain sort; max "
+            f"abs err {errs[what]:.3g}")
+        if what == "uniform":
+            uniform, st_uniform = (labels, sub), stb
+            sort_ms = time_ms(torch, lambda: sk.key_sort(*uniform, valid, k))
+            plain_ms = time_ms(torch, lambda: sk.stats_from_labels_reference(
+                x, *uniform, valid, k, case.family))
+    ms, err = times["uniform"], errs["uniform"]
+    labels, sub = uniform
+    f = st_uniform.shape[1]
+    library_ms = yardstick = None
+    key = torch.where(valid, sub.long() * k + labels.long(), 2 * k)
+    zeros = torch.zeros((2 * k + 1, f), device=x.device)
     if case.family == "precomputed":
         # the one PyTorch call that computes the same sums: index_add_ of
         # every row, invalid rows keyed to a spare row 2K
-        key = torch.where(valid, sub.long() * k + labels.long(), 2 * k)
-        zeros = torch.zeros((2 * k + 1, f), device=x.device)
-
         def library():
             return torch.index_add(zeros, 0, key, x)
 
-        close(torch, library()[:2 * k], stb, 1e-4, 1e-3)
+        close(torch, library()[:2 * k], st_uniform, 1e-4, 1e-3)
         library_ms = time_ms(torch, library)
+    elif case.family in ("gaussian", "multinomial"):
+        # a yardstick, not the library call: index_add_ over the rows built
+        # beforehand (their build not timed)
+        rows = sk.feature_rows(x, case.family)
+        yardstick = time_ms(torch, lambda: torch.index_add(zeros, 0, key,
+                                                           rows))
+        del rows
     # reads the rows, labels, sub-labels and valid once, writes the
     # statistics; one add a statistic and the built rows' products
     b = least_time(case.row_bytes() + 9 * n + 4 * 2 * k * f,
-              n * case.built + int(valid.sum()) * f)
-    log(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-        f"{library_ms} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}) "
-        f"(N={n}, F={f}, K={k}; {smi}); max abs err {err:.3g}")
+                   n * case.built + int(valid.sum()) * f)
+    log(f"{name}: {ms:.3f} ms uniform, {times['one key']:.3f} one key, "
+        f"{times['fit']:.3f} fit labels (key sort alone {sort_ms:.3f} ms), "
+        f"plain {plain_ms:.3f} ms, library {library_ms} ms, index_add_ over "
+        f"prebuilt rows {yardstick} ms (a yardstick), bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}) (N={n}, F={f}, K={k}; "
+        f"{smi}); max abs err {err:.3g}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
                 library_ms=library_ms)
+
+
+def stat_labelings(torch, sk, case: Case) -> dict:
+    """Kernel B's three label sets on a case's rows, as (labels, sub):
+    uniform over the 2K keys, every point in key 0, and the labels and
+    sides of one kernel A call on the same rows (ll_precision "default")."""
+    n, dev, k = case.x.shape[0], case.x.device, case.k
+    gen = torch.Generator(device=dev).manual_seed(3)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    fit = sk.fused_assign(*case.args(), False, **case.kw(),
+                          ll_precision="default")
+    return {
+        "uniform": (torch.randint(0, k, (n,), generator=gen, device=dev,
+                                  dtype=torch.int32),
+                    torch.randint(0, 2, (n,), generator=gen, device=dev,
+                                  dtype=torch.int32)),
+        "one key": (zeros, zeros),
+        "fit": (fit[0], fit[1]),
+    }
+
+
+def key_profile(torch, labels, sub, valid, k: int) -> str:
+    """How many keys hold points, and the largest key's share."""
+    keep = valid & (labels >= 0) & (labels < k) & (sub >= 0) & (sub < 2)
+    counts = torch.bincount((sub.long() * k + labels.long())[keep],
+                            minlength=2 * k)
+    return (f"{int((counts > 0).sum())} of {2 * k} keys hold points, the "
+            f"largest {float(counts.max()) / max(1, int(keep.sum())):.1%}")
+
+
+# Kernel B's fixed input for its digest, at the 10M x 64-d fit's shape
+# ("gaussian": D=64, K=256) and the flagship's ("precomputed": the features
+# of D=32 points, F=561, K=128)
+DIGEST_CASES = (("gaussian", 64, 256), ("precomputed", 32, 128))
+# sha256 of kernel B's statistics on digest_inputs, as the kernel before the
+# key sort (csrc/stats_from_labels.cu at d1582c7) gave them on an NVIDIA
+# H100 80GB HBM3 (``python3 chip_smoke.py --kernel-b`` from a checkout of
+# that commit): the redesign adds in the same order, so the same bits
+B_DIGESTS = {
+    "gaussian":
+        "ed426abc5d1813bc3d337d3ecc2ae08798b70f3c0e322817f35df86846db7f34",
+    "precomputed":
+        "5c4401a7c30fb80b92994243aa39b71ede6ad41f6bf85c3b083f10a93bdfaab7",
+}
+
+
+def digest_inputs(torch, dev, family: str, d: int, k: int):
+    """N_CHECK standard-normal points seeded 7 (their Gaussian features for
+    "precomputed"), uniform labels and sides with every 997th label out of
+    range, every 1009th side 2 and the last 1000 points invalid."""
+    from dpmmsubclusters_tpu_torch.priors import GAUSSIAN
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((N_CHECK, d), dtype=np.float32)
+    labels = rng.integers(0, k, N_CHECK).astype(np.int32)
+    sub = rng.integers(0, 2, N_CHECK).astype(np.int32)
+    labels[::997] = k
+    sub[::1009] = 2
+    valid = np.ones(N_CHECK, bool)
+    valid[-1000:] = False
+    x, labels, sub, valid = (torch.as_tensor(a).to(dev)
+                             for a in (x, labels, sub, valid))
+    if family == "precomputed":
+        x = GAUSSIAN.features(x)
+    return x, labels, sub, valid
+
+
+def b_digests(torch, sk, dev) -> dict:
+    """sha256 of kernel B's output bytes on each digest input."""
+    out = {}
+    for family, d, k in DIGEST_CASES:
+        x, labels, sub, valid = digest_inputs(torch, dev, family, d, k)
+        st = sk.stats_from_labels(x, labels, sub, valid, k, family)
+        out[family] = hashlib.sha256(st.cpu().numpy().tobytes()).hexdigest()
+        del x, st
+    return out
+
+
+def kernel_b_cases(torch, dev):
+    """Kernel B's four variants at the main paths' shapes (check_kernels'
+    rows), as (variant, Case)."""
+    from dpmmsubclusters_tpu_torch.utils.generators import generate_mnmm_data
+
+    x, _ = separated_data(N_CHECK, D_FLAG, K_TRUE_FLAG)
+    x = (x - x.mean(0)) / x.std(0)
+    yield "precomputed", Case(torch, dev, x, "gaussian", K_MAX_FLAG,
+                              cache="float32")
+    yield "bfloat16", Case(torch, dev, x, "gaussian", K_MAX_FLAG,
+                           cache="bfloat16")
+    x, _ = separated_data(N_CHECK, 64, 100)
+    x = (x - x.mean(0)) / x.std(0)
+    yield "gaussian", Case(torch, dev, x, "gaussian", 256)
+    x, _, _ = generate_mnmm_data(N_CHECK, 100, 20, 120, seed=1)
+    yield "multinomial", Case(torch, dev, x, "multinomial", 64)
+
+
+def device_ms_by_kernel(torch, fn, reps: int = 3) -> dict:
+    """Device ms a call of ``fn`` by kernel (torch.profiler, ``reps``
+    calls after a warm-up), keyed by the kernel's name up to its template
+    arguments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            found = re.search(r"(\w+_kernel)", ev.name)
+            name = found.group(1) if found else ev.name[:40]
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / (
+                1e3 * reps)
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def kernel_b_main() -> int:
+    """``--kernel-b``: kernel B's digests and its times in each variant
+    under the three label sets, one JSON line each, with whichever
+    dpmmsubclusters_tpu_torch this directory holds (the A/B of two trees:
+    copy this file into each)."""
+    import torch
+
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+    from dpmmsubclusters_tpu_torch.utils import profiling
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = profiling.card(dev)
+    print(json.dumps({"digests": b_digests(torch, sk, dev), "card": smi}),
+          flush=True)
+    for variant, case in kernel_b_cases(torch, dev):
+        for what, (labels, sub) in stat_labelings(torch, sk, case).items():
+            ms = time_ms(torch, lambda: sk.stats_from_labels(
+                case.x, labels, sub, case.valid, case.k, case.family))
+            parts = device_ms_by_kernel(torch, lambda: sk.stats_from_labels(
+                case.x, labels, sub, case.valid, case.k, case.family))
+            print(json.dumps({
+                "variant": variant, "labels": what, "ms": ms,
+                "device_ms_by_kernel": parts,
+                "keys": key_profile(torch, labels, sub, case.valid, case.k),
+                "card": smi}), flush=True)
+        del case
+        free(torch)
+    return 0
 
 
 def twin_gate(torch, sk, case: Case) -> None:
@@ -953,7 +1155,7 @@ def profile_sweeps(torch, res, x, name: str, smi: str, sweeps: int = 8):
         met["k"].tolist()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / sweeps
-    parts = {"assign pass": 0.0, "statistics pass": 0.0,
+    parts = {"assign pass": 0.0, "key sort": 0.0, "statistics pass": 0.0,
              "chunk reduction": 0.0, "table math": 0.0}
     launches = 0
     for ev in prof.events():
@@ -962,6 +1164,7 @@ def profile_sweeps(torch, res, x, name: str, smi: str, sweeps: int = 8):
         us = ev.time_range.elapsed_us()
         part = ("assign pass" if ("assign" in ev.name
                                  or "stage_phi" in ev.name) else
+                "key sort" if "stats_sort" in ev.name else
                 "statistics pass" if "stats_partial" in ev.name else
                 "chunk reduction" if "stats_reduce" in ev.name else
                 "table math")
@@ -980,6 +1183,39 @@ def profile_sweeps(torch, res, x, name: str, smi: str, sweeps: int = 8):
         + f" ({smi})")
     del points, state
     return dict(parts=out, wall_ms=wall, featurize_s=feat_s)
+
+
+# the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
+CARD_TESTS = 78
+
+
+def run_card_tests(smi: str) -> int:
+    """The card-only tests in a subprocess, with no conftest (they import
+    torch, numpy, pytest and the port only).  Fails unless every one of the
+    CARD_TESTS runs and passes; returns the count."""
+    import subprocess
+
+    root = pathlib.Path(__file__).resolve().parent
+    files = sorted(str(p.relative_to(root))
+                   for p in root.glob("tests/test_torch_card_*.py"))
+    assert files, "no tests/test_torch_card_*.py"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", "-m", "gpu", *files],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    summary = lines[-1] if lines else ""
+    found = re.search(r"(\d+) passed", summary)
+    passed = int(found.group(1)) if found else 0
+    log(f"card tests ({len(files)} files): {summary} in "
+        f"{time.perf_counter() - t0:.1f} s, rc {proc.returncode} ({smi})")
+    if (proc.returncode != 0 or passed != CARD_TESTS
+            or any(w in summary for w in ("failed", "error", "skipped"))):
+        log("\n".join(lines[-60:]))
+        raise AssertionError(f"card tests: {passed} of {CARD_TESTS} passed "
+                             f"(rc {proc.returncode})")
+    return passed
 
 
 def free(torch) -> None:
@@ -1011,9 +1247,17 @@ def main() -> int:
     _build.load()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
     kernels = check_kernels(torch, dev, smi)
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    digests = b_digests(torch, sk, dev)
+    assert digests == B_DIGESTS, ("kernel B's output differs from the "
+                                  "earlier kernel's", digests)
+    log(f"kernel B's digests equal the earlier kernel's: {digests}")
     kernels["build_gate"] = build_gate(torch, _build, smi)
     kernels.update(check_study_kernels(torch, dev, smi))
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
+    run_card_tests(smi)
+    log(f"card tests done at {time.perf_counter() - t_start:.1f} s")
     studies = run_studies(torch, smi)
     log(f"studies and bench done at {time.perf_counter() - t_start:.1f} s")
     launches = {}      # the main path of each variant: launch counts
@@ -1233,4 +1477,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(kernel_b_main() if sys.argv[1:] == ["--kernel-b"] else main())

@@ -171,10 +171,11 @@ class DPMMModel:
         w = self.counts + self.cfg.alpha
         log_w = torch.as_tensor(np.log(w / w.sum()), dtype=torch.float32,
                                 device=dev)
+        factor = self.family.predictive_factor(post, x.shape[1])  # once
         labels, probs = [], []
         for p0 in range(0, len(x), chunk):
             xc = torch.as_tensor(x[p0:p0 + chunk]).to(dev)
-            logits = self.family.posterior_predictive(xc, post) + log_w
+            logits = self.family.predictive_logpdf(xc, factor) + log_w
             labels.append(torch.argmax(logits, dim=-1).to(torch.int32).cpu())
             if return_probs:
                 probs.append(torch.softmax(logits, dim=-1).cpu())

@@ -15,10 +15,34 @@
 
 namespace dpmm {
 
-// Points per statistics partial: the scatter kernel writes one [2K, F]
-// partial per chunk, summed in chunk order by a second pass (deterministic,
+// Points per statistics partial: the statistics pass writes one [2K, F]
+// partial per chunk, summed in chunk order by a last pass (deterministic,
 // no float atomics).
 constexpr int kStatsChunk = 16384;
+// The statistics pass's key sort (stats_from_labels.cu): warps a chunk, and
+// the most buckets (2K + 1) whose [warps + 1, 2K + 1] table it keeps in 48
+// KB of shared memory; above that the table lives in the scratch.
+constexpr int kSortWarps = 8;
+constexpr int kSortSmemBuckets = 48 * 1024 / (4 * (kSortWarps + 1));
+
+// The statistics pass's scratch, in floats: the partials [n_chunks, 2K, F],
+// then stats_order_ints(n, k) int32: the key sort's perm [n], its offsets
+// [n_chunks, 2K + 1] and, above kSortSmemBuckets buckets, its tables
+// [n_chunks, kSortWarps + 1, 2K + 1].  (ops/sweep_kernels.py's
+// stats_scratch_sizes computes the same.)
+inline long long stats_partial_floats(int n, int f, int k) {
+  const long long chunks = (n + kStatsChunk - 1) / kStatsChunk;
+  return chunks * 2 * k * f;
+}
+inline long long stats_order_ints(int n, int k) {
+  const long long chunks = (n + kStatsChunk - 1) / kStatsChunk;
+  const long long nb = 2LL * k + 1;
+  return n + chunks * nb +
+         (nb > kSortSmemBuckets ? chunks * (kSortWarps + 1) * nb : 0);
+}
+inline long long stats_scratch_floats(int n, int f, int k) {
+  return stats_partial_floats(n, f, k) + stats_order_ints(n, k);
+}
 
 // murmur3 finalizer (dpmmsubclusters_tpu/ops/pallas_sweep.py:60-67).
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -116,12 +140,13 @@ struct Bf16Rows {
 };
 
 // [LEFT K | RIGHT K] x F statistics of the rows by (label, sub, valid) into
-// ``stats``; ``partial`` is [ceil(n / kStatsChunk), 2K, F] scratch.
+// ``stats``; ``scratch`` holds stats_scratch_floats(n, f, k) floats.
+// Built rows must be the Gaussian or the multinomial column map.
 // Instantiated for CacheRows, BuiltRows and Bf16Rows in stats_from_labels.cu.
 template <class Rows>
 cudaError_t launch_stats(Rows rows, const int32_t* labels, const int32_t* sub,
                          const uint8_t* valid, int n, int f, int k,
-                         float* partial, float* stats, cudaStream_t stream);
+                         float* scratch, float* stats, cudaStream_t stream);
 
 // fused_assign_tc.cuh.  Kernel A's assign pass with the ll product on the
 // tensor cores: labels and sub-labels of the rows from phi [f, 2k].  One

@@ -294,7 +294,6 @@ extern "C" int dpmm_kernel_ablate(const float* x, const uint8_t* valid,
 // Floats of scratch a stage set needs (``partial`` above).
 extern "C" long long dpmm_ablate_scratch(int n, int f, int k, int stages) {
   using namespace dpmm;
-  const long long nl = n;
   switch (static_cast<unsigned>(stages)) {
     case kDmaOnly:
     case kStatsRaw:
@@ -303,7 +302,7 @@ extern "C" long long dpmm_ablate_scratch(int n, int f, int k, int stages) {
       return static_cast<long long>(column_partials(n)) * f + f;
     case 0u:
       return 1;
-    default:
-      return (nl + kStatsChunk - 1) / kStatsChunk * 2 * k * f;
+    default:  // the statistics pass's (launch_stats)
+      return stats_scratch_floats(n, f, k);
   }
 }

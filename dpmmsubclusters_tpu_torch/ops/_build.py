@@ -41,11 +41,16 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # f, k, planes
     "dpmm_assign_tc_scratch": [_I, _I, _I],
-    # rows, pairs, d, labels, sub, valid, n, f, k, partial, stats, stream
+    # rows, pairs, d, labels, sub, valid, n, f, k, scratch, stats, stream
     "dpmm_stats_from_labels": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                                _P],
-    # feat, labels, sub, valid, n, f, k, partial, stats, stream
+    # feat, labels, sub, valid, n, f, k, scratch, stats, stream
     "dpmm_stats_from_labels_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # labels, sub, valid, n, k, order, stream
+    "dpmm_stats_key_sort": [_P, _P, _P, _I, _I, _P, _P],
+    # n, f, k; n, k
+    "dpmm_stats_scratch": [_I, _I, _I],
+    "dpmm_stats_order_ints": [_I, _I],
     "dpmm_stats_chunk": [],
     # x, n, f, partial, out, out_rows, stream
     "dpmm_column_sum": [_P, _I, _I, _P, _P, _I, _P],
@@ -61,6 +66,8 @@ _SIGNATURES = {
 }
 _RESTYPES = {"dpmm_error_string": ctypes.c_char_p,
              "dpmm_ablate_scratch": ctypes.c_longlong,
+             "dpmm_stats_scratch": ctypes.c_longlong,
+             "dpmm_stats_order_ints": ctypes.c_longlong,
              "dpmm_assign_tc_scratch": ctypes.c_longlong}
 
 

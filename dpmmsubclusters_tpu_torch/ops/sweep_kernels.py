@@ -6,7 +6,8 @@
   Replaces ``dpmmsubclusters_tpu.ops.pallas_sweep.fused_assign``.
 * :func:`stats_from_labels` (kernel B, ``csrc/stats_from_labels.cu``) --
   the same statistics from given labels.  Replaces
-  ``dpmmsubclusters_tpu.ops.pallas_sweep.stats_from_labels``.
+  ``dpmmsubclusters_tpu.ops.pallas_sweep.stats_from_labels``.  Its first
+  phase, the per-chunk key sort, is also callable alone (:func:`key_sort`).
 
 Both take flat ``int32 [N]`` label streams and, as the JAX functions do, a
 ``family_name`` that says what the rows ``x`` are:
@@ -68,6 +69,12 @@ LL_PRECISIONS = ("default", "high", "highest", "bf16")
 # the tensor-core kernel (1: one bf16 pass, 2: the three-pass split)
 _PLANES = {"highest": 0, "default": 1, "bf16": 1, "high": 2}
 _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
+# kernel B's chunk (points a statistics partial sums) and its key sort's
+# layout: warps a chunk, and the most buckets whose tables fit in shared
+# memory (csrc/dpmm_kernels.cuh holds the same constants)
+STATS_CHUNK = 16384
+_SORT_WARPS = 8
+_SORT_SMEM_BUCKETS = 48 * 1024 // (4 * (_SORT_WARPS + 1))
 
 
 # ---- the counter hash, uint32 emulated in int64 -----------------------------
@@ -148,20 +155,53 @@ def feature_rows(x, family_name: str) -> torch.Tensor:
 _PLAIN_ROWS = 1 << 16  # rows per step of the plain versions (bounds memory)
 
 
+def stat_keys(labels, sub, valid, k: int) -> torch.Tensor:
+    """Each point's bucket in kernel B: its key ``sub * k + label``, or
+    ``2k`` where it adds nothing (invalid, label outside [0, k) or sub-label
+    outside {0, 1})."""
+    lab, side = labels.long(), sub.long()
+    keep = valid.bool() & (lab >= 0) & (lab < k) & (side >= 0) & (side < 2)
+    return torch.where(keep, side * k + lab, 2 * k)
+
+
 def stats_from_labels_reference(x, labels, sub, valid, k: int,
                                 family_name: str = "precomputed"):
     """Plain version of kernel B: ``[LEFT K | RIGHT K] x F`` float32 sums of
-    the valid feature rows of ``x`` by (sub, label)."""
+    the valid feature rows of ``x`` by (sub, label); a label outside [0, k)
+    or a sub-label outside {0, 1} adds nothing, as in the kernel."""
     n = x.shape[0]
     f = feature_dim(family_name, x.shape[1])
     out = torch.zeros((2 * k, f), dtype=torch.float32, device=x.device)
-    key = sub.long() * k + labels.long()
+    key = stat_keys(labels, sub, valid, k)
     for p0 in range(0, n, _PLAIN_ROWS):
         p1 = min(n, p0 + _PLAIN_ROWS)
-        v = valid[p0:p1].bool()
+        v = key[p0:p1] < 2 * k
         out.index_add_(0, key[p0:p1][v],
                        feature_rows(x[p0:p1], family_name)[v])
     return out
+
+
+def key_sort_reference(labels, sub, valid, k: int, chunk: int = STATS_CHUNK):
+    """Plain version of kernel B's key sort: per chunk of ``chunk`` points a
+    stable sort of the points by :func:`stat_keys`.  Returns ``(perm int32
+    [N], offsets int32 [ceil(N / chunk), 2k + 1])``: ``perm[c * chunk:]``
+    holds chunk c's global point indices, each key's in ascending order, the
+    dropped points last; ``offsets[c, j]`` is where key j starts within the
+    chunk (``offsets[c, 2k]``: where the dropped points start)."""
+    n = labels.shape[0]
+    keys = stat_keys(labels, sub, valid, k)
+    n_chunks = -(-n // chunk)
+    perm = torch.empty(n, dtype=torch.int32, device=labels.device)
+    offsets = torch.empty((n_chunks, 2 * k + 1), dtype=torch.int32,
+                          device=labels.device)
+    for c in range(n_chunks):
+        p0, p1 = c * chunk, min(n, (c + 1) * chunk)
+        seg = keys[p0:p1]
+        perm[p0:p1] = (torch.argsort(seg, stable=True) + p0).to(torch.int32)
+        counts = torch.bincount(seg, minlength=2 * k + 1)
+        offsets[c] = (torch.cumsum(counts, 0) - counts)[:2 * k + 1].to(
+            torch.int32)
+    return perm, offsets
 
 
 def ll_product(rows, phi_mat, ll_precision: str = "highest"):
@@ -262,11 +302,23 @@ def _rows_arg(x, family_name: str):
     return feature_pairs(family_name, d, x.device), d, f
 
 
+def stats_scratch_sizes(n: int, k: int, f: int) -> tuple[int, int]:
+    """Kernel B's scratch as ``(partial floats, order int32)``: the chunk
+    partials ``[ceil(n / STATS_CHUNK), 2k, f]``, then the key sort's perm
+    ``[n]``, offsets ``[n_chunks, 2k + 1]`` and, above ``_SORT_SMEM_BUCKETS``
+    buckets, its tables ``[n_chunks, _SORT_WARPS + 1, 2k + 1]`` (the C
+    side's ``stats_scratch_floats``, one float buffer holding both)."""
+    n_chunks = -(-n // STATS_CHUNK)
+    buckets = 2 * k + 1
+    order = n + n_chunks * buckets
+    if buckets > _SORT_SMEM_BUCKETS:
+        order += n_chunks * (_SORT_WARPS + 1) * buckets
+    return n_chunks * 2 * k * f, order
+
+
 def _stats_scratch(n: int, k: int, f: int, device) -> torch.Tensor:
-    chunk = _build.load().dpmm_stats_chunk()
-    n_chunks = -(-n // chunk)
-    return torch.empty((n_chunks, 2 * k, f), dtype=torch.float32,
-                       device=device)
+    return torch.empty(sum(stats_scratch_sizes(n, k, f)),
+                       dtype=torch.float32, device=device)
 
 
 def _ptr(t):
@@ -292,10 +344,10 @@ def stats_from_labels(x, labels, sub, valid, k: int,
                 sub=(sub, torch.int32, (n,)),
                 valid=(valid, torch.bool, (n,)))
     stats = torch.empty((2 * k, f), dtype=torch.float32, device=x.device)
-    partial = _stats_scratch(n, k, f, x.device)
+    scratch = _stats_scratch(n, k, f, x.device)
     lib = _build.load()
     tail = (labels.data_ptr(), sub.data_ptr(), valid.data_ptr(), n, f, k,
-            partial.data_ptr(), stats.data_ptr(),
+            scratch.data_ptr(), stats.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if bf16:
         rc = lib.dpmm_stats_from_labels_bf16(x.data_ptr(), *tail)
@@ -304,6 +356,27 @@ def stats_from_labels(x, labels, sub, valid, k: int,
     _build.check(rc, "stats_from_labels")
     stats_from_labels.launches[family_name] += 1
     return stats
+
+
+def key_sort(labels, sub, valid, k: int):
+    """Kernel B's first phase alone: ``(perm, offsets)`` as
+    :func:`key_sort_reference` gives them, from the card's sort kernel on a
+    CUDA tensor (counted in ``key_sort.launches``)."""
+    if labels.device.type == "cpu":
+        return key_sort_reference(labels, sub, valid, k)
+    n = labels.shape[0]
+    _check_cuda("key_sort", labels=(labels, torch.int32, (n,)),
+                sub=(sub, torch.int32, (n,)), valid=(valid, torch.bool, (n,)))
+    order = torch.empty(stats_scratch_sizes(n, k, 1)[1], dtype=torch.int32,
+                        device=labels.device)
+    rc = _build.load().dpmm_stats_key_sort(
+        labels.data_ptr(), sub.data_ptr(), valid.data_ptr(), n, k,
+        order.data_ptr(), torch.cuda.current_stream(labels.device).cuda_stream)
+    _build.check(rc, "key_sort")
+    key_sort.launches += 1
+    n_chunks = -(-n // STATS_CHUNK)
+    return order[:n], order[n:n + n_chunks * (2 * k + 1)].view(n_chunks,
+                                                               2 * k + 1)
 
 
 def _launch_key(family_name: str, cta_points: int) -> str:
@@ -390,12 +463,12 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
     sub = torch.empty(n, dtype=torch.int32, device=x.device)
     stats = torch.empty((2 * k, f), dtype=torch.float32, device=x.device)
-    partial = _stats_scratch(n, k, f, x.device)
+    scratch = _stats_scratch(n, k, f, x.device)
     args = (valid.data_ptr(), phi_mat.data_ptr(), _ptr(delta_t), _ptr(phi_t),
             planes, log_w.data_ptr(), seed.data_ptr(), int(tile_off),
             int(bool(hard)),
             int(tile), n, f, k)
-    outs = (labels.data_ptr(), sub.data_ptr(), partial.data_ptr(),
+    outs = (labels.data_ptr(), sub.data_ptr(), scratch.data_ptr(),
             stats.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if family_name in _BF16:
         rc = lib.dpmm_fused_assign_bf16(x.data_ptr(), _ptr(x_raw),
@@ -417,6 +490,7 @@ def reset_launches() -> None:
                          if c != 64), 0)
     fused_assign.tensor_core_launches = dict.fromkeys(VARIANTS, 0)
     stats_from_labels.launches = dict.fromkeys(STATS_VARIANTS, 0)
+    key_sort.launches = 0
 
 
 reset_launches()

@@ -43,6 +43,12 @@ class Family(Protocol):
         cache: Params = None,
     ) -> Params: ...
 
+    # posterior_predictive(x, hyper) ==
+    # predictive_logpdf(x, predictive_factor(hyper, D)): the factor is per
+    # model, the evaluation per chunk of points
+    def predictive_factor(self, hyper: Params, d: int) -> Params: ...
+    def predictive_logpdf(self, x: torch.Tensor,
+                          factor: Params) -> torch.Tensor: ...
     def posterior_predictive(self, x: torch.Tensor,
                              hyper: Params) -> torch.Tensor: ...
 

@@ -110,11 +110,20 @@ class MultinomialFamily:
                 "log_p": log_p}
 
     # ---- prediction -------------------------------------------------------
+    def predictive_factor(self, hyper, d: int):
+        """The per-model part of :meth:`posterior_predictive`: the expected
+        log-probabilities ``log(alpha / sum alpha)``."""
+        a = hyper["alpha"]
+        return {"log_p": torch.log(a / a.sum(-1, keepdim=True))}
+
+    def predictive_logpdf(self, x: torch.Tensor, factor) -> torch.Tensor:
+        """[N, D] x a :meth:`predictive_factor` [...] -> [N, ...]."""
+        return torch.einsum("nd,...d->n...", x, factor["log_p"])
+
     def posterior_predictive(self, x: torch.Tensor, hyper) -> torch.Tensor:
         """[N, D] x batched hyper [...] -> [N, ...]."""
-        a = hyper["alpha"]
-        v = torch.log(a / a.sum(-1, keepdim=True))
-        return torch.einsum("nd,...d->n...", x, v)
+        return self.predictive_logpdf(
+            x, self.predictive_factor(hyper, x.shape[-1]))
 
     # ---- convenience ------------------------------------------------------
     def default_prior(self, d: int, device="cpu"):

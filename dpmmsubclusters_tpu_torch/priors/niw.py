@@ -256,31 +256,46 @@ class GaussianFamily:
                 "logdet_sigma": logdet_sigma}
 
     # ---- prediction -------------------------------------------------------
-    def posterior_predictive(self, x: torch.Tensor, hyper) -> torch.Tensor:
-        """Multivariate Student-t posterior predictive log-density
-        (reference src/priors/niw.jl:68-76).  x: [N, D]; hyper batched
-        [...]; returns [N, ...]."""
-        d = x.shape[-1]
+    def predictive_factor(self, hyper, d: int):
+        """The per-model part of :meth:`posterior_predictive`: the Student-t
+        scale's Cholesky factor, its degrees of freedom ``nu_t`` and the
+        log-density's constant (the lgamma terms and the log-determinant),
+        batched like ``hyper``; :meth:`predictive_logpdf` evaluates points."""
         nu_t = hyper["nu"] - d + 1.0
         scale = (
             ((hyper["kappa"] + 1.0) / (hyper["kappa"] * nu_t))[..., None, None]
             * hyper["nu"][..., None, None]
             * hyper["psi"]
         )
-        ones = torch.ones(nu_t.shape, dtype=torch.bool, device=x.device)
+        ones = torch.ones(nu_t.shape, dtype=torch.bool, device=nu_t.device)
         chol = linalg.masked_cholesky(scale, ones)
         logdet = linalg.chol_logdet(chol)
-        diffs = x.T - hyper["m"][..., None]                 # [..., D, N]
-        y = torch.linalg.solve_triangular(chol, diffs, upper=False)
-        m2 = (y * y).sum(-2)                                # [..., N]
-        ll = (
+        const = (
             torch.lgamma((nu_t + d) / 2.0)
             - torch.lgamma(nu_t / 2.0)
             - 0.5 * d * (torch.log(nu_t) + LOG_PI)
             - 0.5 * logdet
-        )[..., None] - 0.5 * (nu_t[..., None] + d) * torch.log1p(
-            m2 / nu_t[..., None])
+        )
+        return {"chol": chol, "m": hyper["m"], "nu_t": nu_t, "const": const}
+
+    def predictive_logpdf(self, x: torch.Tensor, factor) -> torch.Tensor:
+        """Student-t log-density of x [N, D] under a
+        :meth:`predictive_factor`; returns [N, ...]."""
+        d = x.shape[-1]
+        nu_t = factor["nu_t"]
+        diffs = x.T - factor["m"][..., None]                # [..., D, N]
+        y = torch.linalg.solve_triangular(factor["chol"], diffs, upper=False)
+        m2 = (y * y).sum(-2)                                # [..., N]
+        ll = factor["const"][..., None] - 0.5 * (nu_t[..., None] + d) \
+            * torch.log1p(m2 / nu_t[..., None])
         return torch.movedim(ll, -1, 0)
+
+    def posterior_predictive(self, x: torch.Tensor, hyper) -> torch.Tensor:
+        """Multivariate Student-t posterior predictive log-density
+        (reference src/priors/niw.jl:68-76).  x: [N, D]; hyper batched
+        [...]; returns [N, ...]."""
+        return self.predictive_logpdf(
+            x, self.predictive_factor(hyper, x.shape[-1]))
 
     # ---- convenience ------------------------------------------------------
     def default_prior(self, d: int, device="cpu"):

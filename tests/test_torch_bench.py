@@ -2,8 +2,8 @@
 stage ablation) and kernel A's tile-study mode, held against the JAX
 package's study kernels run through the Pallas interpreter on identical
 inputs; the profiling helpers; the bench entry point.  The CUDA kernels
-run only on a card (``gpu`` marker; ``python3 chip_smoke.py`` checks them
-there at the studies' full sizes)."""
+run only on a card: tests/test_torch_card_bench.py, and ``python3
+chip_smoke.py`` at the studies' full sizes."""
 import functools
 import importlib.util
 import json
@@ -325,46 +325,3 @@ def test_study_mains_rehearse_on_the_cpu(capsys):
     printed = capsys.readouterr().out.strip().splitlines()
     assert len(printed) == 32 and all(json.loads(p)["ms"] >= 0
                                       for p in printed)
-
-
-# ---- on a card ---------------------------------------------------------------
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_cuda_column_sum_matches_plain(rng, cuda):
-    x = torch.from_numpy(rng.standard_normal((5000, 561)).astype(
-        np.float32)).to(cuda)
-    got = stk.column_sum(x, torch.empty((3, 561), device=cuda))
-    want = stk.column_sum_reference(x, torch.empty((3, 561), device=cuda))
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
-    assert torch.equal(got, stk.column_sum(x))   # deterministic, row 0
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("name,stages", tka.VARIANTS,
-                         ids=[v[0] for v in tka.VARIANTS])
-def test_cuda_kernel_ablate_matches_plain(rng, cuda, name, stages):
-    x, valid, phi, log_w, loglrw = _ablate_inputs(rng, n=4096, f=64, k=16)
-    args = [t.to(cuda) for t in _t(x, valid, phi, log_w, loglrw)]
-    lk, sk_, stk_ = stk.kernel_ablate(*args, 11, tile=512, stages=stages)
-    lp, sp, stp = stk.kernel_ablate_reference(*args, 11, tile=512,
-                                              stages=stages)
-    assert (lk == lp).float().mean() >= 0.999
-    assert (sk_ == sp).float().mean() >= 0.999
-    torch.testing.assert_close(stk_, stp, rtol=1e-4, atol=1e-2)
-
-
-@pytest.mark.gpu
-def test_cuda_tile_study_labels_do_not_depend_on_the_block(rng, cuda):
-    x, valid, phi, log_w = [t.to(cuda) for t in tts.inputs(4096, 4, 16,
-                                                           "cpu")]
-    runs = [tts.variant(3, x, valid, phi, log_w, tile=1024, cta_points=c)
-            for c in sk.CTA_POINTS]
-    for other in runs[1:]:
-        for a, b in zip(runs[0], other):
-            assert torch.equal(a, b)

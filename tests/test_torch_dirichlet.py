@@ -116,6 +116,9 @@ def test_posterior_predictive_matches_jax(rng):
     want = JM.posterior_predictive(jnp.asarray(x), _j(post))
     assert got.shape == (33, k)
     _close(got, want)
+    # the per-model factor, then the evaluation: the one-call form's bits
+    factor = TM.predictive_factor(post, d)
+    assert torch.equal(TM.predictive_logpdf(torch.from_numpy(x), factor), got)
 
 
 @pytest.mark.parametrize("family", ["torch", "jax"])

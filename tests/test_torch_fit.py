@@ -59,6 +59,25 @@ class TestFourCorners:
         assert np.array_equal(pred, res.labels)
         assert probs.shape == (len(x), 4)
 
+    def test_predict_factors_once_and_ignores_chunking(self, result,
+                                                      monkeypatch):
+        """predict factors the Student-t scale once per call, and its
+        labels and probabilities do not depend on the chunk, bit for bit."""
+        res, x, _ = result
+        xn = x + np.random.default_rng(1).normal(0, 3, x.shape).astype(
+            np.float32)
+        family = res.model.family
+        calls = []
+        factor = family.predictive_factor
+        monkeypatch.setattr(family, "predictive_factor",
+                            lambda *a: calls.append(1) or factor(*a))
+        small = res.model.predict(xn, chunk=7)
+        assert len(calls) == 1
+        whole = res.model.predict(xn, chunk=1 << 16)
+        np.testing.assert_array_equal(small[0], whole[0])
+        np.testing.assert_array_equal(small[1].view(np.uint32),
+                                      whole[1].view(np.uint32))
+
     def test_history_and_log_posterior(self, result):
         res, _, _ = result
         h = res.history

@@ -1,8 +1,9 @@
 """The port's sweep kernels on the CPU: the plain versions against the Pallas
 kernels run through the TPU interpreter on identical inputs, the wrappers'
 device dispatch, and the kernel build's failure mode.  The CUDA kernels
-themselves run only on a card (``gpu`` marker; ``python3 chip_smoke.py``
-checks them there at the flagship shapes)."""
+themselves run only on a card: tests/test_torch_card_kernels.py and
+tests/test_torch_card_stats.py, and ``python3 chip_smoke.py`` at the
+flagship shapes."""
 import numpy as np
 import pytest
 
@@ -180,24 +181,6 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     assert not list(tmp_path.iterdir())   # no partial library left behind
 
 
-@pytest.mark.gpu
-def test_cuda_kernels_match_plain_versions(rng):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels)")
-    feat, phi_mat, log_w, valid = _case(rng, n=4096)
-    args = [t.cuda() for t in _tt(feat, valid, phi_mat, log_w)]
-    for hard in (True, False):
-        lk, sk_, stk = sk.fused_assign(*args, 5, 0, hard)
-        lp, sp, _ = sk.fused_assign_reference(*args, 5, 0, hard)
-        assert (lk == lp).float().mean() >= (1.0 if hard else 0.999)
-        want = sk.stats_from_labels_reference(args[0], lk, sk_, args[1], 8)
-        torch.testing.assert_close(stk, want, rtol=STATS_RTOL,
-                                   atol=STATS_ATOL)
-        torch.testing.assert_close(
-            sk.stats_from_labels(args[0], lk, sk_, args[1], 8), want,
-            rtol=STATS_RTOL, atol=STATS_ATOL)
-
-
 # ---- the raw-point variants ("gaussian", "multinomial") and any K ----------
 _D = {"gaussian": 4, "multinomial": 8}
 
@@ -332,43 +315,3 @@ def test_wrappers_refuse_unknown_variants():
         sk.fused_assign(meta, valid, torch.empty((15, 8), device="meta"),
                         torch.empty(4, device="meta"), 1,
                         family_name="gaussian")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("family", ["gaussian", "multinomial"])
-def test_cuda_built_rows_match_plain_and_cache_rows(rng, family):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels)")
-    x, phi_mat, log_w, valid = _raw_case(rng, family, n=4096,
-                                         d=_D[family])
-    args = [t.cuda() for t in _tt(x, valid, phi_mat, log_w)]
-    lk, sk_, stk = sk.fused_assign(*args, 5, 0, True, family_name=family)
-    lp, _, _ = sk.fused_assign_reference(*args, 5, 0, True,
-                                         family_name=family)
-    assert (lk == lp).float().mean() >= 0.999
-    want = sk.stats_from_labels_reference(args[0], lk, sk_, args[1], 8,
-                                          family)
-    torch.testing.assert_close(stk, want, rtol=STATS_RTOL, atol=STATS_ATOL)
-    from dpmmsubclusters_tpu_torch.priors import GAUSSIAN as TG
-    from dpmmsubclusters_tpu_torch.priors import MULTINOMIAL as TMN
-
-    feat = (TG if family == "gaussian" else TMN).features(args[0])
-    twin = sk.fused_assign(feat, *args[1:], 5, 0, True)
-    for a, b in zip((lk, sk_, stk), twin):
-        assert torch.equal(a, b)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("k", [192, 256])
-def test_cuda_kernel_a_takes_any_k(rng, k):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels)")
-    feat, phi_mat, log_w, valid = _case(rng, n=4096, k=k)
-    args = [t.cuda() for t in _tt(feat, valid, phi_mat, log_w)]
-    lk, sk_, stk = sk.fused_assign(*args, 5, 0, True)
-    lp, sp, _ = sk.fused_assign_reference(*args, 5, 0, True)
-    assert (lk == lp).float().mean() >= 0.999
-    assert (sk_ == sp).float().mean() >= 0.999
-    torch.testing.assert_close(
-        stk, sk.stats_from_labels_reference(args[0], lk, sk_, args[1], k),
-        rtol=STATS_RTOL, atol=STATS_ATOL)

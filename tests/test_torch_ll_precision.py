@@ -3,8 +3,8 @@ under each setting against the Pallas kernel run through the TPU interpreter
 on identical inputs, for every variant and above and below one pass of the
 CUDA kernel's columns; the 4-corner fit under each setting; and
 that the config's value reaches the kernel's wrapper.  The tensor-core
-kernel itself runs only on a card (``gpu`` marker; ``python3 chip_smoke.py``
-checks it there at the fits' shapes under both settings)."""
+kernel itself runs only on a card: tests/test_torch_card_ll_precision.py,
+and ``python3 chip_smoke.py`` at the fits' shapes under both settings."""
 import numpy as np
 import pytest
 
@@ -340,42 +340,3 @@ def test_cpu_wrapper_counts_no_tensor_core_launch(rng):
     sk.reset_launches()
     assert set(sk.fused_assign.tensor_core_launches) == set(sk.VARIANTS)
     assert not any(sk.fused_assign.tensor_core_launches.values())
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("ll_precision", ["default", "high"])
-@pytest.mark.parametrize("k", [8, 128, 192])
-@pytest.mark.parametrize("variant", VARIANTS)
-def test_cuda_tensor_core_pass_matches_plain(rng, variant, k, ll_precision):
-    """The tensor-core kernel against the plain version at the same
-    precision: hard labels and sub-labels agree >= 0.999, the statistics at
-    the kernel's labels, two launches equal, and the launch is counted."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels)")
-    x, phi_mat, log_w, valid = _case(rng, variant, k)
-    tv, tphi, tlw = (torch.from_numpy(a).cuda()
-                     for a in (valid, phi_mat, log_w))
-    raw = torch.from_numpy(x).cuda()
-    kw = dict(tile=TILE, family_name=variant, ll_precision=ll_precision)
-    rows = raw
-    if variant != "multinomial" and variant != "gaussian":
-        rows = TG.features(raw)
-    if variant in ("hybrid", "bfloat16"):
-        rows = rows.bfloat16()
-    if variant == "hybrid":
-        kw["x_raw"] = raw
-    sk.reset_launches()
-    got = sk.fused_assign(rows, tv, tphi, tlw, 7, 2, True, **kw)
-    assert sk.fused_assign.tensor_core_launches[variant] == 1
-    want = sk.fused_assign_reference(rows, tv, tphi, tlw, 7, 2, True, **kw)
-    assert (got[0] == want[0]).float().mean() >= 0.999
-    assert (got[1] == want[1]).float().mean() >= 0.999
-    stats_rows, fam = (raw, "gaussian") if variant == "hybrid" else (
-        rows, variant)
-    torch.testing.assert_close(
-        got[2], sk.stats_from_labels_reference(stats_rows, got[0], got[1],
-                                               tv, k, fam),
-        rtol=1e-4, atol=1e-3)
-    again = sk.fused_assign(rows, tv, tphi, tlw, 7, 2, True, **kw)
-    for a, b in zip(got, again):
-        assert torch.equal(a, b)

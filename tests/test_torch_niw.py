@@ -142,6 +142,22 @@ def test_posterior_predictive_matches(rng):
     _close(got, want)
 
 
+def test_posterior_predictive_factors_once_per_model(rng):
+    """The per-model factor, evaluated per chunk of points, gives the
+    one-call form bit for bit."""
+    k, d = 3, 4
+    stats = {k_: v[:, 0] for k_, v in _stats(rng, k, d).items()}
+    prior = {k_: v[:, 0] for k_, v in _prior(k, d).items()}
+    hyper = TG.calc_posterior(_t(prior), _t(stats))
+    x = torch.from_numpy(rng.standard_normal((50, d)).astype(np.float32))
+    factor = TG.predictive_factor(hyper, d)
+    whole = TG.posterior_predictive(x, hyper)
+    parts = torch.cat([TG.predictive_logpdf(x[p0:p0 + 7], factor)
+                       for p0 in range(0, 50, 7)])
+    assert torch.equal(TG.predictive_logpdf(x, factor), whole)
+    assert torch.equal(parts, whole)
+
+
 def test_prior_transforms_match():
     d = 3
     shift = np.array([1.0, -2.0, 0.5], np.float32)
