@@ -7,11 +7,14 @@ side, and at two shapes under "high", the three-pass split; and the
 raw-point and bf16 variants against the f32 cache variant bit for bit
 under both; kernel B under uniform labels, every point in one key and the
 labels of one kernel A call, its key sort equal to the plain sort, and its
-output on a fixed input equal to the earlier kernel's by sha256), runs
+output on a fixed input equal to the earlier kernel's by sha256; kernel
+A's exact route's labels and sub-labels on fixed inputs equal to the
+earlier exact kernel's by sha256, beside the strict-fp32 SGEMM of its
+whole columns as a yardstick), runs
 kernel E's build gate (a well-formed kernel builds and runs, its
 ill-formed twin makes the build raise), checks the kernel studies'
-kernels at their full sizes (kernel C's column sums and kernel A's 32-,
-64- and 128-point blocks at 1M x 640, K=128, whose labels must not depend
+kernels at their full sizes (kernel C's column sums and kernel A's 64-,
+128- and 256-point blocks at 1M x 640, K=128, whose labels must not depend
 on the block; each of kernel D's 8 stage sets at 1M x 561, K=128), runs
 the card-only tests (tests/test_torch_card_*.py, in a subprocess with no
 conftest; every one must pass), runs the port's bench entry points (the
@@ -32,16 +35,23 @@ through every path of the port, at the config's default ll_precision
 * under "highest", one small fit of every other variant (the exact
   kernels' paths), and under "high" a 4-corner and a 200k x 32-d fit;
 
-and profiles 8 steady sweeps of the flagship fit and of each 10M x 64-d fit
-with torch.profiler.
+and profiles 8 steady sweeps of the flagship fit (f32 cache, under
+"default" and "highest") and of each 10M x 64-d fit with torch.profiler.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-a    # kernel A exact: digests and times
     python3 chip_smoke.py --kernel-b    # kernel B alone: digests and times
+    python3 chip_smoke.py --chain-quality   # 1M x 64-d, seeds 1-5
 
-``--kernel-b`` prints kernel B's digests and its time in each variant under
-the three label sets (with the device time of each of its kernels), one
-JSON line each, with whichever dpmmsubclusters_tpu_torch sits beside this
-file: a copy in another tree times that tree.
+``--kernel-a`` prints the exact route's digests and its times in each
+variant (beside "default"), the tile study's blocks and kernel D's stage
+sets; ``--kernel-b`` prints kernel B's digests and its time in each variant
+under the three label sets (with the device time of each of its kernels);
+both one JSON line each, with whichever dpmmsubclusters_tpu_torch sits
+beside this file: a copy in another tree times that tree.
+``--chain-quality`` fits 1M x 64-d (K_true=100, no cache) at seeds 1-5
+under "default" and "highest" and prints K, NMI, the first sweep at K=100
+and ms/sweep of each fit.
 
 Any failed check raises (non-zero exit).  On success the line before the
 last is a JSON object describing each kernel variant (launches in the fit
@@ -290,10 +300,25 @@ def check_assign(torch, sk, name: str, case: Case, smi: str,
                        FP32_FLOP_S)
     else:
         b = least_time(nbytes, product + rest)
+    yardstick = ""
+    if ll_precision == "highest":
+        # a yardstick, not the library call: strict-fp32 SGEMM of the K
+        # whole columns alone over rows built beforehand (not timed)
+        rows = sk.feature_rows(x, case.family)
+        whole = case.phi_mat[:, :k].contiguous()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            sgemm_ms = time_ms(torch, lambda: rows @ whole)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del rows
+        yardstick = (f", yardstick (strict-fp32 torch.matmul of the {k} "
+                     f"whole columns alone) {sgemm_ms:.3f} ms")
     log(f"{name}: {ms:.3f} ms (less kernel B's time, the assign pass: "
         f"{pass_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
-        f"{b['bound_ms']:.3f} ms ({b['bound_by']}) (N={n}, F={f}, K={k}; "
-        f"{smi}); max abs err {err:.3g}")
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}){yardstick} (N={n}, "
+        f"F={f}, K={k}; {smi}); max abs err {err:.3g}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
                 library_ms=None, pass_ms=pass_ms)
 
@@ -552,6 +577,234 @@ def kernel_b_main() -> int:
                 "card": smi}), flush=True)
         del case
         free(torch)
+    return 0
+
+
+# Kernel A's exact route on fixed inputs for its digest: N_DIGEST points
+# (ragged: no multiple of any block), the last 1000 invalid, hash tile 512
+# at tile_off 3; phi of the family's form with whole column 3 and the delta
+# column of label 5 NaN, one inactive slot.  The f32 cache at F=561 (D=32)
+# at K = 15, 32, 63, 128 (the earlier kernel's four one-pass widths, odd K
+# taking 4-byte phi copies), 129 and 256 (passes); rows built at D=64
+# (F=2145) at K = 128 and 256; multinomial at D=100, K=64; the bf16 cache
+# at F=561, K=128; hybrid at D=64, K=256.
+N_DIGEST = 300_007
+A_DIGEST_CASES = tuple(
+    [("precomputed", 32, k) for k in (15, 32, 63, 128, 129, 256)]
+    + [("gaussian", 64, 128), ("gaussian", 64, 256),
+       ("multinomial", 100, 64), ("bfloat16", 32, 128), ("hybrid", 64, 256)])
+# sha256 of kernel A's labels and sub-labels under ll_precision "highest",
+# hard then soft, on a_digest_inputs, as the earlier exact kernel
+# (csrc/fused_assign.cu + row_products.cuh at 8ddad29) gave them on an
+# NVIDIA H100 80GB HBM3 (``python3 chip_smoke.py --kernel-a`` from a
+# checkout of that commit): the redesign keeps every sum's order, so the
+# same bits
+A_DIGESTS = {
+    "precomputed K=15":
+        "c4b1835bfabe704c04944624c894c9cb774fb75d0d50d563a1c141736c6e538b",
+    "precomputed K=32":
+        "066ebe2d39e8ea6baf8a18bc2962e6a04690298b2542cbdf69cd33a5c7052386",
+    "precomputed K=63":
+        "f71e1456451d5bc246277a877e245f0c0e1edb79993e2cee0672359afcc49de4",
+    "precomputed K=128":
+        "b7a66d49460634b42c57585215902c3a147e133a83815ab9cf603282c63a39d4",
+    "precomputed K=129":
+        "7a08678b0e20e3e3925e1269a0446794a8c45633ed7122b46ca29080df4b6060",
+    "precomputed K=256":
+        "37d3e3f274071d4c0c0edb50bbb3d06f003b2c637e70c2f8ee43849d5088e920",
+    "gaussian K=128":
+        "0bf411d8b3eb421148487e50a274dbb2a2ebac045476eb0fe5eac963b05361f6",
+    "gaussian K=256":
+        "f2f7100518211c290433c90ff87c88e80c11538aed9762379fd3ea27dbe63640",
+    "multinomial K=64":
+        "d06d014d93922349273fb5e9f2c36d4dc19465836b5b9858beb4d94546ada49b",
+    "bfloat16 K=128":
+        "17cdac25dad1292e0f726dfb28185272c28f28870a012f3692db560613912f3e",
+    "hybrid K=256":
+        "566b24a46d47f37f3ee5a0d86fef62937a02f80c3d68544d46de055d03356c43",
+}
+
+
+def a_digest_inputs(torch, dev, family: str, d: int, k: int):
+    """(args, kwargs) of kernel A on its digest input (numpy-seeded; see
+    A_DIGEST_CASES)."""
+    from dpmmsubclusters_tpu_torch.priors import GAUSSIAN
+    from dpmmsubclusters_tpu_torch.sampler.driver import bf16_features
+
+    rng = np.random.default_rng(11)
+    n = N_DIGEST
+    z = rng.integers(0, k, n)
+    if family == "multinomial":
+        p = rng.dirichlet(np.ones(d), size=k)
+        x = rng.multinomial(60, p[z]).astype(np.float32)
+        lp_l = np.log(p * rng.uniform(0.9, 1.1, p.shape))
+        lp_r = np.log(p * rng.uniform(0.9, 1.1, p.shape))
+        whole = np.concatenate([np.zeros((1, k)), np.log(p).T])
+        delta = np.concatenate([rng.normal(0, 0.1, (1, k)), (lp_r - lp_l).T])
+    else:
+        mu = rng.standard_normal((k, d)) * 0.35
+        x = (mu[z] + rng.standard_normal((n, d))).astype(np.float32)
+
+        def natural(m, lam):
+            """phi of N(m, lam^-1) on the rows [1, x, triu(x x^T)]."""
+            iu = np.triu_indices(d)
+            quad = np.where(iu[0] == iu[1], -0.5, -1.0) * lam[iu]
+            lin = lam @ m
+            const = (-0.5 * m @ lin + 0.5 * np.linalg.slogdet(lam)[1]
+                     - 0.5 * d * np.log(2 * np.pi))
+            return np.concatenate([[const], lin, quad])
+
+        whole, delta = [], []
+        for j in range(k):
+            a = rng.normal(0, 0.02, (d, d))
+            lam = np.eye(d) + (a + a.T) / 2
+            eps = rng.normal(0, 0.05, d)
+            whole.append(natural(mu[j], lam))
+            delta.append(natural(mu[j] + eps, lam) - natural(mu[j] - eps, lam)
+                         + rng.normal(0, 0.1))
+        whole, delta = np.stack(whole, 1), np.stack(delta, 1)
+    phi = np.ascontiguousarray(np.concatenate([whole, delta], 1),
+                               dtype=np.float32)
+    phi[:, 3] = np.nan
+    phi[:, k + 5] = np.nan
+    log_w = np.log(rng.dirichlet(np.ones(k))).astype(np.float32)
+    log_w[k - 1] = -np.inf
+    valid = np.ones(n, bool)
+    valid[-1000:] = False
+    x, phi, log_w, valid = (torch.as_tensor(a).to(dev)
+                            for a in (x, phi, log_w, valid))
+    kw = dict(tile=HASH_TILE, ll_precision="highest", family_name=family)
+    if family == "precomputed":
+        x = GAUSSIAN.features(x)
+    elif family in ("bfloat16", "hybrid"):
+        if family == "hybrid":
+            kw["x_raw"] = x
+        x = bf16_features(GAUSSIAN, x, SEED)
+    return (x, valid, phi, log_w, SEED, 3), kw
+
+
+def a_digests(torch, sk, dev) -> dict:
+    """sha256 of kernel A's labels and sub-labels (hard, then soft) on each
+    digest input."""
+    out = {}
+    for family, d, k in A_DIGEST_CASES:
+        args, kw = a_digest_inputs(torch, dev, family, d, k)
+        h = hashlib.sha256()
+        for hard in (True, False):
+            labels, sub, _ = sk.fused_assign(*args, hard, **kw)
+            h.update(labels.cpu().numpy().tobytes())
+            h.update(sub.cpu().numpy().tobytes())
+        out[f"{family} K={k}"] = h.hexdigest()
+        del args, kw
+    return out
+
+
+def kernel_a_main() -> int:
+    """``--kernel-a``: kernel A's digests, then the times of its exact
+    route (and, as a control, of "default") in each variant at the kernel
+    checks' shapes, of the tile study's full mode at each block size and of
+    kernel D's stage sets, one JSON line each, with whichever
+    dpmmsubclusters_tpu_torch this directory holds (the A/B of two trees:
+    copy this file into each)."""
+    import torch
+
+    from dpmmsubclusters_tpu_torch.benchmarks import kernel_ablate as kab
+    from dpmmsubclusters_tpu_torch.benchmarks import kernel_tile_study as kts
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+    from dpmmsubclusters_tpu_torch.utils import profiling
+    from dpmmsubclusters_tpu_torch.utils.generators import generate_mnmm_data
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = profiling.card(dev)
+    print(json.dumps({"digests": a_digests(torch, sk, dev), "card": smi}),
+          flush=True)
+
+    def emit(**row):
+        print(json.dumps(dict(row, card=smi)), flush=True)
+
+    x, _ = separated_data(N_CHECK, D_FLAG, K_TRUE_FLAG)
+    x = (x - x.mean(0)) / x.std(0)
+    x64, _ = separated_data(N_CHECK, 64, 100)
+    x64 = (x64 - x64.mean(0)) / x64.std(0)
+    xm, _, _ = generate_mnmm_data(N_CHECK, 100, 20, 120, seed=1)
+    for name, make in (
+            ("precomputed", lambda: Case(torch, dev, x, "gaussian",
+                                         K_MAX_FLAG, cache="float32")),
+            ("precomputed K=256", lambda: Case(torch, dev, x, "gaussian", 256,
+                                               cache="float32")),
+            ("bfloat16", lambda: Case(torch, dev, x, "gaussian", K_MAX_FLAG,
+                                      cache="bfloat16")),
+            ("gaussian", lambda: Case(torch, dev, x64, "gaussian", 256)),
+            ("hybrid", lambda: Case(torch, dev, x64, "gaussian", 256,
+                                    cache="bfloat16").as_hybrid()),
+            ("multinomial", lambda: Case(torch, dev, xm, "multinomial", 64))):
+        case = make()
+        for prec in ("highest", "default"):
+            ms = time_ms(torch, lambda: sk.fused_assign(
+                *case.args(), False, **case.kw(), ll_precision=prec))
+            emit(variant=name, ll_precision=prec, ms=ms)
+        del case
+        free(torch)
+    xs, valid, phi, log_w = kts.inputs(N_CHECK, D_FLAG, K_MAX_FLAG, dev)
+    for cta in sk.CTA_POINTS:
+        emit(study="tile_study_full", cta_points=cta, ms=time_ms(
+            torch, lambda: kts.variant(SEED, xs, valid, phi, log_w, tile=512,
+                                       cta_points=cta)))
+    del xs, valid, phi, log_w
+    free(torch)
+    f = 1 + D_FLAG + D_FLAG * (D_FLAG + 1) // 2
+    gen = torch.Generator(device=dev).manual_seed(2)
+    args = (torch.randn((N_CHECK, f), generator=gen, device=dev),
+            torch.ones(N_CHECK, dtype=torch.bool, device=dev),
+            torch.randn((f, 3 * K_MAX_FLAG), generator=gen, device=dev),
+            torch.log(torch.full((K_MAX_FLAG,), 1.0 / K_MAX_FLAG,
+                                 device=dev)),
+            torch.log(torch.full((2, K_MAX_FLAG), 0.5, device=dev)))
+    for name, stages in kab.VARIANTS:
+        emit(study="kernel_ablate", set=name, ms=time_ms(
+            torch, lambda: kab.variant(SEED, *args, tile=kab.TILE,
+                                       stages=stages)))
+    return 0
+
+
+def chain_quality_main() -> int:
+    """``--chain-quality``: 1M x 64-d, K_true=100, k_max=256, no cache,
+    seeds 1-5, under ll_precision "default" beside "highest": per fit K,
+    NMI, the first sweep at K=100 and ms/sweep, one JSON line each."""
+    import torch
+
+    import dpmmsubclusters_tpu_torch as dpmm
+    from dpmmsubclusters_tpu_torch.utils import profiling
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    smi = profiling.card("cuda")
+    k_true = 100
+    x, gt = separated_data(1_000_000, 64, k_true)
+    cfg = dict(k_max=256, chunk_size=16384, burnout=5, alpha=10.0,
+               track_posterior=False, merge_candidates=1024, iters=200,
+               precompute_features=False)
+    for seed in range(1, 6):
+        for prec in ("default", "highest"):
+            t0 = time.perf_counter()
+            res = dpmm.fit(x, device="cuda", verbose=False, gt=gt, seed=seed,
+                           ll_precision=prec, **cfg)
+            secs = time.perf_counter() - t0
+            ks = res.history.k
+            first = next((i + 1 for i, kk in enumerate(ks) if kk == k_true),
+                         None)
+            print(json.dumps({
+                "seed": seed, "ll_precision": prec, "k": res.k,
+                "nmi": dpmm.nmi(gt, res.labels), "first_sweep_at_k": first,
+                "sweeps": len(ks),
+                "ms_per_sweep": float(np.median(res.history.times[-40:]))
+                * 1e3, "fit_s": secs, "card": smi}), flush=True)
+            del res
+            free(torch)
     return 0
 
 
@@ -819,7 +1072,7 @@ def check_column_sum(torch, stk, x, smi: str) -> dict:
 def check_tile_study(torch, sk, kts, x, valid, phi, log_w, smi: str,
                      out: dict) -> None:
     """The tile study's full mode (kernel A "precomputed" at each hash tile
-    and block size): at every tile the 32-, 64- and 128-point blocks give
+    and block size): at every tile the 64-, 128- and 256-point blocks give
     the same labels, sub-labels and statistics (the hash does not depend on
     the block); at tile 512 each block size against the plain version."""
     def run(tile, cta):
@@ -833,7 +1086,8 @@ def check_tile_study(torch, sk, kts, x, valid, phi, log_w, smi: str,
                                   runs[0], other):
                 assert torch.equal(a, b), (f"tile study: {what} at "
                                            f"{cta} points a block differ "
-                                           f"from 32 (tile {tile})")
+                                           f"from {sk.CTA_POINTS[0]} (tile "
+                                           f"{tile})")
     log(f"tile study: labels, sub-labels and statistics equal across "
         f"blocks of {sk.CTA_POINTS} points at hash tiles {kts.TILES}")
     n, f = x.shape
@@ -1186,7 +1440,7 @@ def profile_sweeps(torch, res, x, name: str, smi: str, sweeps: int = 8):
 
 
 # the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
-CARD_TESTS = 78
+CARD_TESTS = 95
 
 
 def run_card_tests(smi: str) -> int:
@@ -1253,6 +1507,10 @@ def main() -> int:
     assert digests == B_DIGESTS, ("kernel B's output differs from the "
                                   "earlier kernel's", digests)
     log(f"kernel B's digests equal the earlier kernel's: {digests}")
+    digests = a_digests(torch, sk, dev)
+    assert digests == A_DIGESTS, ("kernel A's exact route differs from the "
+                                  "earlier kernel's", digests)
+    log(f"kernel A's exact digests equal the earlier kernel's: {digests}")
     kernels["build_gate"] = build_gate(torch, _build, smi)
     kernels.update(check_study_kernels(torch, dev, smi))
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
@@ -1335,9 +1593,9 @@ def main() -> int:
         ms[what] = r["ms"]
         if prec == "highest":
             exact["precomputed"] = r["launches"]
-        elif variant == "precomputed":
-            profile_sweeps(torch, r["res"], x, "flagship 1M x 32-d (float32 "
-                           "cache)", smi)
+        if variant == "precomputed":
+            profile_sweeps(torch, r["res"], x, f"flagship 1M x 32-d ({what})",
+                           smi)
         if layout == "bfloat16":
             # reported, not gated: the JAX package documents that this
             # layout's bf16 statistics make the chain under-split
@@ -1453,8 +1711,9 @@ def main() -> int:
     tile = studies["tile_study"]
     study_rows = [("column_sum[dma_only]", "column_sum",
                    "dma_only mode", tile["column_sum"])]
-    for cta in (32, 64, 128):
-        variant = "precomputed" + ("" if cta == 64 else f" cta={cta}")
+    for cta in sk.CTA_POINTS:
+        variant = "precomputed" + ("" if cta == sk.FIT_CTA_POINTS
+                                   else f" cta={cta}")
         study_rows.append((f"tile_study_full[cta={cta}]", "tile_study_full",
                            f"full modes; kernel A precomputed, {cta} "
                            f"points a block", tile["fused_assign"][variant]))
@@ -1476,5 +1735,11 @@ def main() -> int:
     return 0
 
 
+MODES = {"--kernel-a": kernel_a_main, "--kernel-b": kernel_b_main,
+         "--chain-quality": chain_quality_main}
+
 if __name__ == "__main__":
-    sys.exit(kernel_b_main() if sys.argv[1:] == ["--kernel-b"] else main())
+    argv = sys.argv[1:]
+    if len(argv) > 1 or (argv and argv[0] not in MODES):
+        sys.exit(f"usage: python3 chip_smoke.py [{' | '.join(MODES)}]")
+    sys.exit(MODES[argv[0]]() if argv else main())

@@ -5,8 +5,8 @@ On the TPU the study asked whether larger tiles (512 to 4096 rows, with the
 scoped VMEM limit lifted) amortize per-tile overheads against the stream
 rate.  Here the hash tile T is a parameter of the Gumbel hash only and
 costs nothing; what amortizes per-block overhead on the card is the point
-block of a CUDA block, so each T is timed at blocks of 32, 64 and 128
-points (kernel A's one-pass kernel at 4, 8 and 16 warps; the fits use 64).
+block of a CUDA block, so each T is timed at blocks of 64, 128 and 256
+points (kernel A's exact kernel at 4, 8 and 16 warps; the fits use 128).
 The labels do not depend on the block.  Modes, per T:
 
 * ``dma_only`` -- kernel C (:func:`..ops.study_kernels.column_sum`): stats
@@ -41,7 +41,7 @@ MODES = ("dma_only", "full")
 
 
 def variant(seed, x, valid, phi, log_w, *, tile: int, mode: str = "full",
-            cta_points: int = 64):
+            cta_points: int = sweep_kernels.FIT_CTA_POINTS):
     """One mode of the study over ``x`` [N, F]: ``(labels int32 [N], sub
     int32 [N], stats float32 [2K, F])`` (see the module note)."""
     if mode == "full":
@@ -93,9 +93,10 @@ def main(argv=None) -> list:
             continue
         for mode, cta in [("dma_only", None)] + [
                 ("full", c) for c in sweep_kernels.CTA_POINTS]:
-            def fn(tile=tile, mode=mode, cta=cta):
+            def fn(tile=tile, mode=mode,
+                   cta=cta or sweep_kernels.FIT_CTA_POINTS):
                 return variant(seed, x, valid, phi, log_w, tile=tile,
-                               mode=mode, cta_points=cta or 64)
+                               mode=mode, cta_points=cta)
 
             ms = profiling.median_ms(fn, device, args.reps)
             row = {"tile": tile, "mode": mode, "cta_points": cta, "ms": ms,

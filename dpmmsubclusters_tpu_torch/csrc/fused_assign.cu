@@ -31,274 +31,337 @@
 // (row % tile) * 2 + {0, 1} with seed ^ 0xA5A5A5A5 (the sub-label pair).
 // ``tile`` belongs to the hash only; the CUDA block size is independent.
 //
-// What bounds it on the H100: the ll product is F * 2K * 2 flop per point
-// for at most 4F bytes read -- 128 flop/byte at K=128 from the cache, and
-// 2 * 2145 * 512 flop for 256 bytes of x at D=64 and K=256 -- so it is
+// What bounds it on the H100: the ll product a point needs is its K whole
+// columns and its label's one delta column, F * (K + 1) * 2 flop for at
+// most 4F bytes read -- 64 flop/byte at K=128 from the cache, and
+// 2 * 2145 * 257 flop for 256 bytes of x at D=64 and K=256 -- so it is
 // compute-bound in exact float32 (outside the tensor cores: 67 TFLOP/s
-// peak).  A
-// built row costs one multiply per feature per block, not per column.  A
-// bf16 cache halves the bytes read (2F per point), which does not move a
-// compute bound; it halves the cache's memory (10M x 64-d: 42.9 GB against
-// 86 GB), so a cache fits the card where the f32 one does not.  The
-// statistics pass is cheaper (see stats_from_labels.cu).
+// peak).  A built row costs one multiply per feature per block, not per
+// column.  A bf16 cache halves the bytes read (2F per point), which does
+// not move a compute bound; it halves the cache's memory (10M x 64-d:
+// 42.9 GB against 86 GB), so a cache fits the card where the f32 one does
+// not.  The statistics pass is cheaper (see stats_from_labels.cu).
 //
-// Design (the exact path: right and simple, CUDA cores only): a block of 8
-// warps owns 64 points.  Each warp owns 8 points and each lane the columns
-// lane + 32c, so a warp holds whole rows of ll in registers: the Gumbel
-// argmax is a warp shuffle reduction and ll never touches device memory.
-// The product is the register-blocked SGEMM of row_products.cuh (built rows
-// read x from L1: a block's 64 points are 16 KB at D=64).  The block size
-// is a template parameter of the one-pass kernel; the fits use 8 warps, and
-// the tile study (benchmarks/kernel_tile_study.py) also times 4 and 16 warps
-// (32 and 128 points a block) on the f32 cache.
-// Up to 2K = 256 columns (K <= 128) one pass covers [whole | delta] and the
-// delta column K + label is one shuffle away.  Above, for any K, the whole
-// columns go in passes of 256 with a running Gumbel argmax (the noise of
-// column j depends only on j, and later passes win only a strictly larger
-// value, so the first max still wins); then each point's one delta column
-// is an F-long dot with the row label of ``delta_t`` [K, F] (phi's delta
-// columns, transposed by the wrapper so the read is coalesced), split over
-// the lanes and summed by a butterfly.
-#include "row_products.cuh"
+// Design (the exact path, CUDA cores only; exact_product.cuh has the
+// product): a block of 2 BM threads owns BM points (the fits: 128; the tile
+// study also times 64 and 256) and takes the K whole columns in passes of
+// at most 128 (one pass at K <= 128), each a 16 x 4 register tile a thread
+// (16 x 2, 16 x 1 at K <= 64, 32), so ll never touches device memory and
+// phi is read from L2 once a pass per 128 points.  A pass folds each
+// point's columns into a running Gumbel argmax: each lane over its columns,
+// then the point's warp by shuffles, then lane 0 with the earlier passes'
+// best, kept in shared memory.  The noise of column j depends only on j,
+// and a column wins only by jnp.argmax's rule (larger value, then smaller
+// column), so the order of folding does not matter.  (Drawing the noise
+// only for columns that can win, as fused_assign_tc.cuh does, gave the
+// same labels and no measurable gain here.)  Then each point's delta is
+// one dot of its row with row ``label`` of delta_t [K, F] (phi's delta
+// columns, transposed by the wrapper), summed as it always was, so the
+// sub-labels keep their bits:
+//  * K <= 128: one fmaf chain over f ascending from 0.0f, one thread a
+//    point, over 16-feature tiles of the block's rows staged in shared
+//    memory (the ring is free by then);
+//  * K > 128: lane l of a warp chains the features l + 32 t, then a
+//    butterfly sums the 32 lanes.
+#include "exact_product.cuh"
 
 #include <cmath>
 
 namespace dpmm {
 namespace {
 
-constexpr int kWarps = 8;  // the main path's block: 8 warps, 64 points
-constexpr int kBlockPoints = kWarps * kPointsPerWarp;  // 64
-constexpr int kThreads = kWarps * 32;
-constexpr int kWideCPT = 8;  // columns per lane of one pass: 256 per warp
+constexpr int kWarps = 8;  // the main path's block: 8 warps, 128 points
+constexpr int kPassCols = 128;     // whole columns a pass, K > 128
+constexpr int kDeltaTile = 16;     // features a tile of the K <= 128 delta
 // the ll product's ``precision`` at the C entry points
-constexpr int kExactF32 = 0;     // this file's kernels
+constexpr int kExactF32 = 0;     // this file's kernel
 constexpr int kOneBf16Pass = 1;  // fused_assign_tc.cu
 constexpr int kThreeBf16Passes = 2;  // fused_assign_tc3.cu
 
-// Folds this lane's whole columns j = j0 + lane + 32 c < k of one row into
-// the running Gumbel argmax (bv, bj), then takes the warp's argmax, so every
-// lane returns the same (bv, bj).  Ties keep the smaller column.
-template <int CPT>
-__device__ __forceinline__ void gumbel_argmax(const float (&ll)[CPT], int j0,
-                                              int k, uint32_t s, uint32_t rit,
-                                              float noise,
-                                              const float* __restrict__ log_w,
-                                              int lane, float& bv, int& bj) {
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    const int j = j0 + lane + 32 * c;
-    if (j < k) {
-      float logit = ll[c] + log_w[j];
-      if (isnan(logit)) logit = -INFINITY;
-      const float v =
-          logit + gumbel(s, rit * static_cast<uint32_t>(k) +
-                                static_cast<uint32_t>(j)) * noise;
-      if (better(v, j, bv, bj)) {
-        bv = v;
-        bj = j;
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-    const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
-    if (better(ov, oj, bv, bj)) {
-      bv = ov;
-      bj = oj;
-    }
-  }
-}
-
 // Writes row g's label and its sub-label, drawn from the label's delta
-// logit (lane 0 writes).
+// logit.
 __device__ __forceinline__ void write_row(int g, int label, float delta,
-                                          uint32_t s, uint32_t rit, int lane,
+                                          uint32_t s, uint32_t rit,
                                           int32_t* __restrict__ labels,
                                           int32_t* __restrict__ sub) {
   const uint32_t s2 = s ^ 0xA5A5A5A5u;
   const float g_l = gumbel(s2, rit * 2u);
   const float g_r = gumbel(s2, rit * 2u + 1u);
-  if (lane == 0) {
-    labels[g] = label;
-    sub[g] = (delta + (g_r - g_l) + 1e-30f > 0.0f) ? 1 : 0;
-  }
+  labels[g] = label;
+  sub[g] = (delta + (g_r - g_l) + 1e-30f > 0.0f) ? 1 : 0;
 }
 
-// K <= 128: one pass over all 2K columns [whole | delta], in blocks of
-// ``Warps`` warps (Warps * 8 points).  The stage is dynamic shared memory:
-// at 16 warps and 2K = 256 it is 49.7 KB, above the 48 KB of a static one.
-template <int CPT, int Warps, class Rows>  // columns per lane: 2K <= 32 CPT
-__global__ void __launch_bounds__(Warps * 32)
-assign_kernel(Rows rows, const float* __restrict__ phi,
-              const float* __restrict__ log_w,
-              const int32_t* __restrict__ seed_ptr, int tile_off, int hard,
-              int tile, int n, int f, int k, int32_t* __restrict__ labels,
-              int32_t* __restrict__ sub) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto& sm = *reinterpret_cast<Stage<CPT, Warps>*>(smem);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * Warps * kPointsPerWarp;
-
-  float acc[kPointsPerWarp][CPT];
-  row_products<CPT, Warps>(rows, phi, 2 * k, 0, 2 * k, row0, n, f, sm, acc);
-
-  const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
-  const float noise = hard ? 0.0f : 1.0f;
-#pragma unroll
-  for (int r = 0; r < kPointsPerWarp; ++r) {
-    const int g = row0 + warp * kPointsPerWarp + r;
-    if (g >= n) continue;  // uniform across the warp
-    const uint32_t s = tile_seed(
-        seed, static_cast<uint32_t>(tile_off) + static_cast<uint32_t>(g / tile));
-    const uint32_t rit = static_cast<uint32_t>(g % tile);
-    float bv = -INFINITY;
-    int bj = 0x7fffffff;
-    gumbel_argmax<CPT>(acc[r], 0, k, s, rit, noise, log_w, lane, bv, bj);
-    // the delta column K + label lives on lane (K + label) % 32, slot c
-    const int jd = k + bj;
-    const int cd = jd / 32;
-    float mine = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      if (c == cd) mine = acc[r][c];
-    const float delta = __shfl_sync(0xffffffffu, mine, jd % 32);
-    write_row(g, bj, delta, s, rit, lane, labels, sub);
-  }
+// Shared memory of a block: the product's ring, then the running argmax
+// (value, column) of each of its BM points, then, for rows built from the
+// points where they fit, the block's X = [1, x] (d + 1 floats a point).
+constexpr int kSmemLimit = 232448;  // what a block may take of an SM
+template <int BM, int BN>
+constexpr int exact_smem_bytes() {
+  return ExactShape<BM, BN>::kRingFloats * 4 + 8 * BM;
 }
+inline int x_stage_bytes(const BuiltRows& rows, int bm) {
+  return bm * (rows.d + 1) * 4;
+}
+inline int x_stage_bytes(const CacheRows&, int) { return 0; }
+inline int x_stage_bytes(const Bf16Rows&, int) { return 0; }
 
-// Any K: the whole columns in passes of 256, then one delta dot per point.
-// Two blocks per SM: the running argmax (16 registers a thread) pushed the
-// kernel to 154 registers and one block (8 warps) per SM, 25% slower
-// (76 -> 57 ms at 1M x 64-d, K=256 on an H100).
-template <class Rows>
-__global__ void __launch_bounds__(kThreads, 2)
-assign_wide_kernel(Rows rows, const float* __restrict__ phi,
-                   const float* __restrict__ delta_t,
-                   const float* __restrict__ log_w,
-                   const int32_t* __restrict__ seed_ptr, int tile_off,
-                   int hard, int tile, int n, int f, int k,
-                   int32_t* __restrict__ labels, int32_t* __restrict__ sub) {
-  constexpr int CPT = kWideCPT;
-  __shared__ __align__(16) Stage<CPT, kWarps> sm;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kBlockPoints;
-  const int wrow0 = row0 + warp * kPointsPerWarp;
-
+// Labels and sub-labels of the rows [BM blockIdx.x, + BM) under the exact
+// float32 product; Wide: K > 128, passes of 128 whole columns.
+// Two blocks an SM at 128 points (128 registers a thread), one at 256, and
+// three at 64 (four spill).
+template <int BM, int BN, bool Wide, class Rows>
+__global__ void __launch_bounds__(ExactShape<BM, BN>::kThreads,
+                                  BM == 64 ? 3 : 256 / BM)
+exact_assign_kernel(Rows rows, const float* __restrict__ phi,
+                    const float* __restrict__ delta_t,
+                    const float* __restrict__ log_w,
+                    const int32_t* __restrict__ seed_ptr, int tile_off,
+                    int hard, int tile, int n, int f, int k, int stage_x,
+                    int32_t* __restrict__ labels,
+                    int32_t* __restrict__ sub) {
+  using Shape = ExactShape<BM, BN>;
+  constexpr int T = Shape::kThreads;
+  constexpr int TN = Shape::kTN;
+  extern __shared__ __align__(16) float smem[];
+  float* best_v = smem + Shape::kRingFloats;
+  int* best_j = reinterpret_cast<int*>(best_v + BM);
+  const int tid = threadIdx.x;
+  const int tx = tid % kExColThreads;
+  const int ty = tid / kExColThreads;
+  const int row0 = blockIdx.x * BM;
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
   const float noise = hard ? 0.0f : 1.0f;
-  // row g's hash seed, recomputed where needed rather than held
+  // built rows: the block's points as X = [1, x] (a row of zeros past n),
+  // so a feature is two shared reads and one product; visible after the
+  // product's first barrier
+  float* xs = nullptr;
+  if constexpr (std::is_same<Rows, BuiltRows>::value) {
+    if (stage_x) {
+      xs = reinterpret_cast<float*>(best_j + BM);
+      const int d = rows.d;
+      for (int idx = tid; idx < BM * d; idx += T) {
+        const int r = idx / d;
+        const int c = idx - r * d;
+        const int g = row0 + r;
+        xs[r * (d + 1) + 1 + c] =
+            g < n ? __ldg(rows.x + static_cast<size_t>(g) * d + c) : 0.0f;
+      }
+      if (tid < BM) xs[tid * (d + 1)] = row0 + tid < n ? 1.0f : 0.0f;
+    }
+  }
+  // row g's hash seed and counter row
   auto seed_of = [&](int g) {
     return tile_seed(seed, static_cast<uint32_t>(tile_off) +
                                static_cast<uint32_t>(g / tile));
   };
-  float bv[kPointsPerWarp];
-  int bj[kPointsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kPointsPerWarp; ++r) {
-    bv[r] = -INFINITY;
-    bj[r] = 0x7fffffff;
-  }
 
-  float acc[kPointsPerWarp][CPT];
-  for (int j0 = 0; j0 < k; j0 += 32 * CPT) {
-    row_products<CPT, kWarps>(rows, phi, 2 * k, j0, min(32 * CPT, k - j0),
-                              row0, n, f, sm, acc);
+  const int passes = Wide ? (k + BN - 1) / BN : 1;
+  for (int p = 0; p < passes; ++p) {
+    const int j0 = p * BN;
+    float acc[kExPoints][TN];
+    exact_product<BM, BN, Wide ? 2 : 1>(rows, phi, 2 * k, j0,
+                                        min(BN, k - j0), row0, n, f, smem,
+                                        xs, acc);
+    float lw[TN];
 #pragma unroll
-    for (int r = 0; r < kPointsPerWarp; ++r)
-      gumbel_argmax<CPT>(acc[r], j0, k, seed_of(wrow0 + r),
-                         static_cast<uint32_t>((wrow0 + r) % tile), noise,
-                         log_w, lane, bv[r], bj[r]);
-  }
-
-  // delta_{label} = row . delta_t[label, :], lane l taking f = l + 32 t
-  float dot[kPointsPerWarp];
+    for (int c = 0; c < TN; ++c) {
+      const int col = j0 + own_col<TN>(tx, c);
+      lw[c] = col < k ? log_w[col] : 0.0f;
+    }
 #pragma unroll
-  for (int r = 0; r < kPointsPerWarp; ++r) dot[r] = 0.0f;
-  for (int fc = lane; fc < f; fc += 32) {
-    const typename Rows::Col c = rows.col(fc);
+    for (int i = 0; i < kExPoints; ++i) {
+      const int r = own_row(ty, i);
+      const int g = row0 + r;
+      const uint32_t s = seed_of(g);
+      const uint32_t rit = static_cast<uint32_t>(g % tile);
+      float bv = -INFINITY;
+      int bj = 0x7fffffff;
 #pragma unroll
-    for (int r = 0; r < kPointsPerWarp; ++r) {
-      const int g = wrow0 + r;
-      if (g < n)
-        dot[r] = fmaf(rows.at(c, g),
-                      delta_t[static_cast<size_t>(bj[r]) * f + fc], dot[r]);
+      for (int c = 0; c < TN; ++c) {
+        const int col = j0 + own_col<TN>(tx, c);
+        if (col < k) {
+          float logit = acc[i][c] + lw[c];
+          if (isnan(logit)) logit = -INFINITY;
+          const float v =
+              logit + gumbel(s, rit * static_cast<uint32_t>(k) +
+                                    static_cast<uint32_t>(col)) *
+                          noise;
+          if (better(v, col, bv, bj)) {
+            bv = v;
+            bj = col;
+          }
+        }
+      }
+#pragma unroll
+      for (int off = kExColThreads / 2; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
+        if (better(ov, oj, bv, bj)) {
+          bv = ov;
+          bj = oj;
+        }
+      }
+      if (tx == 0) {  // the same lane holds point r in every pass
+        if (p > 0 && better(best_v[r], best_j[r], bv, bj)) {
+          bv = best_v[r];
+          bj = best_j[r];
+        }
+        best_v[r] = bv;
+        best_j[r] = bj;
+      }
     }
   }
+  __syncthreads();  // every point's label is in best_j
+
+  if constexpr (!Wide) {
+    // one thread a point: delta = the fmaf chain over f ascending, from a
+    // [16 features][BM points] tile of the rows in the free ring
+    constexpr int kLd = BM + 1;  // conflict-free reads
+    float* tile_s = smem;
+    const bool mine = tid < BM;
+    const float* dcol =
+        delta_t + static_cast<size_t>(mine ? best_j[tid] : 0) * f;
+    float delta = 0.0f;
+    for (int f0 = 0; f0 < f; f0 += kDeltaTile) {
+      // this point's delta values of the tile, in flight with the tile's
+      // rows (zeros past f add +0.0f, which changes no sum's value)
+      float dv[kDeltaTile];
 #pragma unroll
-  for (int r = 0; r < kPointsPerWarp; ++r) {
+      for (int e = 0; e < kDeltaTile; ++e)
+        dv[e] = mine && f0 + e < f ? __ldg(dcol + f0 + e) : 0.0f;
+      // point e / 16, feature f0 + e % 16: a warp reads 16 features of two
+      // rows
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], off);
-    const int g = wrow0 + r;
-    if (g < n)
-      write_row(g, bj[r], dot[r], seed_of(g),
-                static_cast<uint32_t>(g % tile), lane, labels, sub);
+      for (int m = 0; m < kDeltaTile * BM / T; ++m) {
+        const int e = tid + m * T;
+        const int pr = e / kDeltaTile;
+        const int fe = e % kDeltaTile;
+        const int fc = f0 + fe;
+        const int g = row0 + pr;
+        float v = 0.0f;
+        if (g < n && fc < f) {
+          const typename Rows::Col c = rows.col(fc);
+          if constexpr (std::is_same<Rows, BuiltRows>::value) {
+            const int at = pr * (rows.d + 1);
+            v = xs ? __fmul_rn(xs[at + c.a], xs[at + c.b]) : rows.at(c, g);
+          } else {
+            v = rows.at(c, g);
+          }
+        }
+        tile_s[fe * kLd + pr] = v;
+      }
+      __syncthreads();
+      if (mine) {
+#pragma unroll
+        for (int e = 0; e < kDeltaTile; ++e)
+          delta = fmaf(tile_s[e * kLd + tid], dv[e], delta);
+      }
+      __syncthreads();
+    }
+    const int g = row0 + tid;
+    if (mine && g < n)
+      write_row(g, best_j[tid], delta, seed_of(g),
+                static_cast<uint32_t>(g % tile), labels, sub);
+  } else {
+    // a warp a point at a time, 8 points side by side: lane l chains the
+    // features l + 32 t, a butterfly sums the lanes
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    constexpr int kWarpPoints = BM / (T / 32);  // 16
+#pragma unroll 1
+    for (int b0 = 0; b0 < kWarpPoints; b0 += 8) {
+      const int wrow = warp * kWarpPoints + b0;
+      float dot[8];
+      const float* dcol[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        dot[r] = 0.0f;
+        dcol[r] = delta_t + static_cast<size_t>(best_j[wrow + r]) * f;
+      }
+      for (int fc = lane; fc < f; fc += 32) {
+        const typename Rows::Col c = rows.col(fc);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int g = row0 + wrow + r;
+          if (g < n) dot[r] = fmaf(rows.at(c, g), __ldg(dcol[r] + fc), dot[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], off);
+        const int g = row0 + wrow + r;
+        if (lane == 0 && g < n)
+          write_row(g, best_j[wrow + r], dot[r], seed_of(g),
+                    static_cast<uint32_t>(g % tile), labels, sub);
+      }
+    }
   }
 }
 
-template <int CPT, int Warps, class Rows>
-cudaError_t launch_narrow_cpt(Rows rows, const float* phi, const float* log_w,
-                          const int32_t* seed, int tile_off, int hard,
-                          int tile, int n, int f, int k, int32_t* labels,
-                          int32_t* sub, cudaStream_t st) {
-  constexpr int kBytes = sizeof(Stage<CPT, Warps>);
-  auto kernel = assign_kernel<CPT, Warps, Rows>;
-  if (kBytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-    if (err != cudaSuccess) return err;
-  }
-  constexpr int kPoints = Warps * kPointsPerWarp;
-  kernel<<<(n + kPoints - 1) / kPoints, Warps * 32, kBytes, st>>>(
-      rows, phi, log_w, seed, tile_off, hard, tile, n, f, k, labels, sub);
+template <int BM, int BN, bool Wide, class Rows>
+cudaError_t launch_exact(Rows rows, const float* phi, const float* delta_t,
+                         const float* log_w, const int32_t* seed,
+                         int tile_off, int hard, int tile, int n, int f,
+                         int k, int32_t* labels, int32_t* sub,
+                         cudaStream_t st) {
+  const int x_bytes = x_stage_bytes(rows, BM);
+  const int stage_x =
+      x_bytes > 0 && exact_smem_bytes<BM, BN>() + x_bytes <= kSmemLimit;
+  const int bytes = exact_smem_bytes<BM, BN>() + (stage_x ? x_bytes : 0);
+  constexpr auto kernel = exact_assign_kernel<BM, BN, Wide, Rows>;
+  const cudaError_t err = allow_smem<kernel>(kSmemLimit);
+  if (err != cudaSuccess) return err;
+  kernel<<<(n + BM - 1) / BM, ExactShape<BM, BN>::kThreads, bytes, st>>>(
+      rows, phi, delta_t, log_w, seed, tile_off, hard, tile, n, f, k,
+      stage_x, labels, sub);
   return cudaGetLastError();
 }
 
-template <int Warps, class Rows>
-cudaError_t launch_narrow(Rows rows, const float* phi, const float* log_w,
-                          const int32_t* seed, int tile_off, int hard,
-                          int tile, int n, int f, int k, int32_t* labels,
-                          int32_t* sub, cudaStream_t st) {
-  const int two_k = 2 * k;
-#define DPMM_ASSIGN(CPT)                                                   \
-  return launch_narrow_cpt<CPT, Warps>(rows, phi, log_w, seed, tile_off,  \
-                                       hard, tile, n, f, k, labels, sub, st)
-  if (two_k <= 32) DPMM_ASSIGN(1);
-  if (two_k <= 64) DPMM_ASSIGN(2);
-  if (two_k <= 128) DPMM_ASSIGN(4);
-  DPMM_ASSIGN(8);
-#undef DPMM_ASSIGN
+// K <= 128: one pass as wide as K needs.
+template <int BM, class Rows>
+cudaError_t launch_narrow(Rows rows, const float* phi, const float* delta_t,
+                          const float* log_w, const int32_t* seed,
+                          int tile_off, int hard, int tile, int n, int f,
+                          int k, int32_t* labels, int32_t* sub,
+                          cudaStream_t st) {
+#define DPMM_EXACT(BN)                                                      \
+  return launch_exact<BM, BN, false>(rows, phi, delta_t, log_w, seed,      \
+                                     tile_off, hard, tile, n, f, k, labels, \
+                                     sub, st)
+  if (k <= 32) DPMM_EXACT(32);
+  if (k <= 64) DPMM_EXACT(64);
+  DPMM_EXACT(128);
+#undef DPMM_EXACT
 }
 
-// ``warps`` other than 8 (4 or 16: the tile study's block sizes) is taken
-// only by the f32 cache at K <= 128.
+// ``warps`` other than 8 (4 or 16: the tile study's 64- and 256-point
+// blocks) is taken only by the f32 cache at K <= 128.
 template <class Rows>
 cudaError_t launch_assign(Rows rows, const float* phi, const float* delta_t,
                           const float* log_w, const int32_t* seed,
                           int tile_off, int hard, int tile, int n, int f,
                           int k, int warps, int32_t* labels, int32_t* sub,
                           cudaStream_t st) {
-  if (2 * k > 256) {
+  if (delta_t == nullptr) return cudaErrorInvalidValue;
+  constexpr int kBM = kWarps * 16;
+  if (k > kPassCols) {
     if (warps != kWarps) return cudaErrorInvalidValue;
-    assign_wide_kernel<Rows><<<(n + kBlockPoints - 1) / kBlockPoints,
-                               kThreads, 0, st>>>(
-        rows, phi, delta_t, log_w, seed, tile_off, hard, tile, n, f, k,
-        labels, sub);
-    return cudaGetLastError();
+    return launch_exact<kBM, kPassCols, true>(rows, phi, delta_t, log_w,
+                                              seed, tile_off, hard, tile, n,
+                                              f, k, labels, sub, st);
   }
   if (warps == kWarps)
-    return launch_narrow<kWarps>(rows, phi, log_w, seed, tile_off, hard,
-                                 tile, n, f, k, labels, sub, st);
+    return launch_narrow<kBM>(rows, phi, delta_t, log_w, seed, tile_off,
+                              hard, tile, n, f, k, labels, sub, st);
   if constexpr (std::is_same<Rows, CacheRows>::value) {
     if (warps == 4)
-      return launch_narrow<4>(rows, phi, log_w, seed, tile_off, hard, tile,
-                              n, f, k, labels, sub, st);
+      return launch_narrow<64>(rows, phi, delta_t, log_w, seed, tile_off,
+                               hard, tile, n, f, k, labels, sub, st);
     if (warps == 16)
-      return launch_narrow<16>(rows, phi, log_w, seed, tile_off, hard, tile,
-                               n, f, k, labels, sub, st);
+      return launch_narrow<256>(rows, phi, delta_t, log_w, seed, tile_off,
+                                hard, tile, n, f, k, labels, sub, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -338,9 +401,9 @@ int assign_and_stats(Rows rows, StatRows stat_rows, const uint8_t* valid,
 // rows: the cache [n, f] when ``pairs`` is null, else the raw points [n, d]
 // with the column map pairs [f] (dpmm_kernels.cuh, BuiltRows).
 // ``precision`` 0: the exact float32 product; delta_t [k, f] (phi's delta
-// columns, transposed) is read only when k > 128, and ``warps`` is the block
-// size of the assign pass: 8 (64 points), or 4 or 16 for the cache at
-// k <= 128.  ``precision`` 1: one bf16 pass on the tensor cores, 2: the
+// columns, transposed) holds each point's delta column, and ``warps`` is
+// the block size of the assign pass: 8 (128 points), or 4 or 16 (64 or 256
+// points) for the cache at k <= 128.  ``precision`` 1: one bf16 pass on the tensor cores, 2: the
 // three-pass bf16 split there; phi_t is scratch of dpmm_assign_tc_scratch(f,
 // k, precision) bf16 values, delta_t is not read and ``warps`` is 8.
 extern "C" int dpmm_fused_assign(const float* rows, const int32_t* pairs,

@@ -37,15 +37,16 @@
 // exact float32 one: the ablation is that of kernel A under ll_precision
 // "highest".  DOT_ONLY and DMA_ONLY are bound by the one read of x.
 //
-// Design: kernel A's block (row_products.cuh, 8 warps of 8 points, one
-// lane per column lane + 32c) in two passes: the K whole columns, a Gumbel
-// argmax by warp shuffles, then under SUB the 2K [left | right] columns,
-// each point's pair one shuffle away.  It computes all 2K sub-columns, as
-// the TPU kernel did.  DOT_ONLY launches no product over the points: its
-// sums are linear in x, so kernel C's reduction (column_sum.cu) sums x's
-// columns in one read and a small kernel multiplies the [F] sums by phi
-// [F, 3K], each column's terms added in a fixed order.  K <= 128.
-#include "row_products.cuh"
+// Design: kernel A's product (exact_product.cuh: a block of 128 points, a
+// 16 x TN register tile a thread, a point's columns on the lanes of a warp)
+// in two phases: the K whole columns, a Gumbel argmax by warp shuffles,
+// then under SUB the 2K [left | right] columns in two calls of K, each
+// point's pair one shuffle away.  It computes all 2K sub-columns, as the
+// TPU kernel did, and draws the noise of every whole column.  DOT_ONLY launches no product over the points: its sums are
+// linear in x, so kernel C's reduction (column_sum.cu) sums x's columns in
+// one read and a small kernel multiplies the [F] sums by phi [F, 3K], each
+// column's terms added in a fixed order.  K <= 128.
+#include "exact_product.cuh"
 
 #include <cmath>
 
@@ -62,15 +63,7 @@ enum : unsigned {
   kWrite = 64u,
 };
 
-constexpr int kWarps = 8;
-constexpr int kBlockPoints = kWarps * kPointsPerWarp;  // 64
-constexpr int kThreads = kWarps * 32;
-
-template <int CPT>
-union AblateSmem {
-  Stage<CPT, kWarps> whole;        // pass 1: the K whole columns
-  Stage<2 * CPT, kWarps> lr;       // pass 2: the 2K [left | right] columns
-};
+constexpr int kBlockPoints = 128;
 
 // jnp.argmax's order with NaN as the maximum; ties keep the smaller column.
 __device__ __forceinline__ bool better_nan(float v, int j, float bv, int bj) {
@@ -79,103 +72,118 @@ __device__ __forceinline__ bool better_nan(float v, int j, float bv, int bj) {
   return better(v, j, bv, bj);
 }
 
-// The value of column ``j`` (lane j % 32, slot j / 32) of one row.
-template <int CPT>
-__device__ __forceinline__ float column(const float (&row)[CPT], int j) {
+// Column ``j`` of a point's row, whose columns lie on the lanes of a warp
+// (slot c of lane l holds own_col(l, c)); every lane asks for the same j.
+template <int TN>
+__device__ __forceinline__ float column(const float (&row)[TN], int j) {
   float mine = 0.0f;
 #pragma unroll
-  for (int c = 0; c < CPT; ++c)
-    if (c == j / 32) mine = row[c];
-  return __shfl_sync(0xffffffffu, mine, j % 32);
+  for (int c = 0; c < TN; ++c)
+    if (c == j % TN) mine = row[c];
+  return __shfl_sync(0xffffffffu, mine, j / TN);
 }
 
-template <unsigned Stages, int CPT>  // K <= 32 * CPT
-__global__ void __launch_bounds__(kThreads)
+// Two blocks an SM.  The sets with SUB hold three products and spill 152
+// bytes at K = 128; at one block an SM they do not, and run 30% slower.
+template <unsigned Stages, int BN>  // K <= BN
+__global__ void __launch_bounds__(ExactShape<kBlockPoints, BN>::kThreads, 2)
 ablate_kernel(const float* __restrict__ x, const float* __restrict__ phi,
               const float* __restrict__ log_w,
               const float* __restrict__ loglrw,
               const int32_t* __restrict__ seed_ptr, int tile, int n, int f,
               int k, int sink, int32_t* __restrict__ labels,
               int32_t* __restrict__ sub) {
-  __shared__ __align__(16) AblateSmem<CPT> sm;
+  constexpr int TN = BN / kExColThreads;
+  extern __shared__ __align__(16) float smem[];
+  // past the ring: each point's label and its left and right picks (kept
+  // here, not in registers, across the products)
+  int* lab = reinterpret_cast<int*>(
+      smem + ExactShape<kBlockPoints, BN>::kRingFloats);
+  float* pick = reinterpret_cast<float*>(lab + kBlockPoints);  // [2][128]
   const CacheRows rows{x, f};
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tx = threadIdx.x % kExColThreads;
+  const int ty = threadIdx.x / kExColThreads;
   const int row0 = blockIdx.x * kBlockPoints;
   const int ldp = 3 * k;
-
-  float ll[kPointsPerWarp][CPT];
-  row_products<CPT, kWarps>(rows, phi, ldp, 0, k, row0, n, f, sm.whole, ll);
-
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
-  int lab[kPointsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kPointsPerWarp; ++r) {
-    const int g = row0 + warp * kPointsPerWarp + r;
-    const uint32_t s = tile_seed(seed, static_cast<uint32_t>(g / tile));
-    const uint32_t rit = static_cast<uint32_t>(g % tile);
-    float bv = -INFINITY;
-    int bj = 0x7fffffff;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int j = lane + 32 * c;
-      if (j < k) {
-        float v = ll[r][c] + log_w[j];
-        if constexpr ((Stages & kGumbel) != 0) {
-          if (isnan(v)) v = -INFINITY;
-          v += gumbel(s, rit * static_cast<uint32_t>(k) +
-                             static_cast<uint32_t>(j));
-        }
-        if (better_nan(v, j, bv, bj)) {
-          bv = v;
-          bj = j;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
-      if (better_nan(ov, oj, bv, bj)) {
-        bv = ov;
-        bj = oj;
-      }
-    }
-    lab[r] = bj;
-  }
 
-  int side[kPointsPerWarp];
+  {
+    float ll[kExPoints][TN];
+    exact_product<kBlockPoints, BN, 1>(rows, phi, ldp, 0, k, row0, n, f,
+                                       smem, nullptr, ll);
 #pragma unroll
-  for (int r = 0; r < kPointsPerWarp; ++r) side[r] = 0;
-  if constexpr ((Stages & kSub) != 0) {
-    float lr[kPointsPerWarp][2 * CPT];
-    row_products<2 * CPT, kWarps>(rows, phi, ldp, k, 2 * k, row0, n, f, sm.lr,
-                                  lr);
-#pragma unroll
-    for (int r = 0; r < kPointsPerWarp; ++r) {
-      const int g = row0 + warp * kPointsPerWarp + r;
-      const uint32_t s2 =
-          tile_seed(seed, static_cast<uint32_t>(g / tile)) ^ 0xA5A5A5A5u;
+    for (int i = 0; i < kExPoints; ++i) {
+      const int r = own_row(ty, i);
+      const int g = row0 + r;
+      const uint32_t s = tile_seed(seed, static_cast<uint32_t>(g / tile));
       const uint32_t rit = static_cast<uint32_t>(g % tile);
-      const int j = lab[r];
-      const float pick_l = column<2 * CPT>(lr[r], j) + loglrw[j];
-      const float pick_r = column<2 * CPT>(lr[r], k + j) + loglrw[k + j];
-      side[r] = (pick_r + gumbel(s2, rit * 2u + 1u) >
-                 pick_l + gumbel(s2, rit * 2u))
-                    ? 1
-                    : 0;
+      float bv = -INFINITY;
+      int bj = 0x7fffffff;
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const int j = own_col<TN>(tx, c);
+        if (j < k) {
+          float v = ll[i][c] + log_w[j];
+          if constexpr ((Stages & kGumbel) != 0) {
+            if (isnan(v)) v = -INFINITY;
+            v += gumbel(s, rit * static_cast<uint32_t>(k) +
+                               static_cast<uint32_t>(j));
+          }
+          if (better_nan(v, j, bv, bj)) {
+            bv = v;
+            bj = j;
+          }
+        }
+      }
+#pragma unroll
+      for (int off = kExColThreads / 2; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
+        if (better_nan(ov, oj, bv, bj)) {
+          bv = ov;
+          bj = oj;
+        }
+      }
+      if (tx == 0) lab[r] = bj;
     }
   }
 
-  if ((Stages & (kWrite | kStats)) != 0 || sink) {
+  if constexpr ((Stages & kSub) != 0) {
+    // the label's left column, then its right one: a call each (the call's
+    // first barrier makes the labels visible)
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      float lr[kExPoints][TN];
+      exact_product<kBlockPoints, BN, 1>(rows, phi, ldp, (1 + h) * k, k,
+                                         row0, n, f, smem, nullptr, lr);
 #pragma unroll
-    for (int r = 0; r < kPointsPerWarp; ++r) {
-      const int g = row0 + warp * kPointsPerWarp + r;
-      if (g < n && lane == 0) {
-        labels[g] = lab[r];
-        sub[g] = side[r];
+      for (int i = 0; i < kExPoints; ++i) {
+        const int r = own_row(ty, i);
+        const int j = lab[r];
+        const float v = column<TN>(lr[i], j) + loglrw[h * k + j];
+        if (tx == 0) pick[h * kBlockPoints + r] = v;
       }
     }
+  }
+  __syncthreads();
+
+  // one thread a point: its side, then the writes
+  const int r = threadIdx.x;
+  const int g = row0 + r;
+  if (r >= kBlockPoints || g >= n) return;
+  int side = 0;
+  if constexpr ((Stages & kSub) != 0) {
+    const uint32_t s2 =
+        tile_seed(seed, static_cast<uint32_t>(g / tile)) ^ 0xA5A5A5A5u;
+    const uint32_t rit = static_cast<uint32_t>(g % tile);
+    side = (pick[kBlockPoints + r] + gumbel(s2, rit * 2u + 1u) >
+            pick[r] + gumbel(s2, rit * 2u))
+               ? 1
+               : 0;
+  }
+  if ((Stages & (kWrite | kStats)) != 0 || sink) {
+    labels[g] = lab[r];
+    sub[g] = side;
   }
 }
 
@@ -206,20 +214,34 @@ colsum_dot_kernel(const float* __restrict__ w, const float* __restrict__ phi,
   out[col] = t;
 }
 
+template <unsigned Stages, int BN>
+cudaError_t launch_ablate_bn(const float* x, const float* phi,
+                             const float* log_w, const float* loglrw,
+                             const int32_t* seed, int tile, int n, int f,
+                             int k, int sink, int32_t* labels, int32_t* sub,
+                             cudaStream_t st) {
+  constexpr int kBytes =
+      ExactShape<kBlockPoints, BN>::kRingFloats * 4 + 3 * 4 * kBlockPoints;
+  constexpr auto kernel = ablate_kernel<Stages, BN>;
+  const cudaError_t err = allow_smem<kernel>(kBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(n + kBlockPoints - 1) / kBlockPoints,
+           ExactShape<kBlockPoints, BN>::kThreads, kBytes, st>>>(
+      x, phi, log_w, loglrw, seed, tile, n, f, k, sink, labels, sub);
+  return cudaGetLastError();
+}
+
 template <unsigned Stages>
 cudaError_t launch_ablate(const float* x, const float* phi,
                           const float* log_w, const float* loglrw,
                           const int32_t* seed, int tile, int n, int f, int k,
                           int sink, int32_t* labels, int32_t* sub,
                           cudaStream_t st) {
-  const int blocks = (n + kBlockPoints - 1) / kBlockPoints;
   if (k <= 32)
-    ablate_kernel<Stages, 1><<<blocks, kThreads, 0, st>>>(
-        x, phi, log_w, loglrw, seed, tile, n, f, k, sink, labels, sub);
-  else
-    ablate_kernel<Stages, 4><<<blocks, kThreads, 0, st>>>(
-        x, phi, log_w, loglrw, seed, tile, n, f, k, sink, labels, sub);
-  return cudaGetLastError();
+    return launch_ablate_bn<Stages, 32>(x, phi, log_w, loglrw, seed, tile, n,
+                                        f, k, sink, labels, sub, st);
+  return launch_ablate_bn<Stages, 128>(x, phi, log_w, loglrw, seed, tile, n,
+                                       f, k, sink, labels, sub, st);
 }
 
 }  // namespace

@@ -59,9 +59,10 @@ _GOLDEN = 0x9E3779B9
 _SUB_SALT = 0xA5A5A5A5
 
 VARIANTS = ("precomputed", "gaussian", "multinomial", "bfloat16", "hybrid")
-# kernel A's block sizes (points a block): 64 for every variant; 32 and 128
-# too for "precomputed" at K <= 128 (the tile study's), counted apart
-CTA_POINTS = (32, 64, 128)
+# kernel A's exact block sizes (points a block): 128 for every variant; 64
+# and 256 too for "precomputed" at K <= 128 (the tile study's), counted apart
+CTA_POINTS = (64, 128, 256)
+FIT_CTA_POINTS = 128
 STATS_VARIANTS = ("precomputed", "gaussian", "multinomial", "bfloat16")
 _BF16 = ("bfloat16", "hybrid")
 LL_PRECISIONS = ("default", "high", "highest", "bf16")
@@ -262,6 +263,13 @@ def fused_assign_reference(x, valid, phi_mat, log_w, seed, tile_off=0,
 
 
 # ---- wrappers ----------------------------------------------------------------
+def delta_rows(phi_mat, k: int) -> torch.Tensor:
+    """phi's delta columns as the rows of a contiguous ``[K, F]`` copy: the
+    exact kernel computes each point's K whole columns only, then dots the
+    point's row with row ``label`` of this copy."""
+    return phi_mat[:, k:].T.contiguous()
+
+
 def _check_cuda(name: str, **tensors):
     dev = None
     for key, (t, dtype, shape) in tensors.items():
@@ -380,14 +388,15 @@ def key_sort(labels, sub, valid, k: int):
 
 
 def _launch_key(family_name: str, cta_points: int) -> str:
-    return (family_name if cta_points == 64
+    return (family_name if cta_points == FIT_CTA_POINTS
             else f"{family_name} cta={cta_points}")
 
 
 def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
                  hard: bool = False, *, tile: int = 512,
                  family_name: str = "precomputed", x_raw=None,
-                 cta_points: int = 64, ll_precision: str = "highest"):
+                 cta_points: int = FIT_CTA_POINTS,
+                 ll_precision: str = "highest"):
     """One sweep's assignment + statistics pass.
 
     x       [N, F] float32 feature cache ("precomputed"), [N, D] raw
@@ -402,10 +411,10 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
             the sweep needs no host sync to draw it)
     hard    zero the label noise (sub-labels are always sampled)
     tile    rows per hash tile (the TPU kernel's tile; 512 by default)
-    cta_points  points per CUDA block of the exact float32 assign pass: 64,
-            or 32 or 128 for "precomputed" at K <= 128 under "highest" (the
-            results do not depend on it; launches count under "precomputed
-            cta=32" and "... cta=128")
+    cta_points  points per CUDA block of the exact float32 assign pass:
+            128, or 64 or 256 for "precomputed" at K <= 128 under "highest"
+            (the results do not depend on it; launches count under
+            "precomputed cta=64" and "... cta=256")
     ll_precision  the ll product (module note): "default" / "bf16" one bf16
             pass on the tensor cores, "high" the three-pass split there,
             "highest" exact float32; the function's default is "highest",
@@ -420,12 +429,12 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
                          f"got {ll_precision!r}")
     planes = _PLANES[ll_precision]
     tensor_cores = planes > 0
-    if cta_points not in CTA_POINTS or (cta_points != 64 and (
+    if cta_points not in CTA_POINTS or (cta_points != FIT_CTA_POINTS and (
             family_name != "precomputed" or log_w.shape[0] > 128
             or tensor_cores)):
-        raise ValueError(f"cta_points={cta_points}: 64 for every variant, "
-                         "32 or 128 only for 'precomputed' at K <= 128 under "
-                         "ll_precision='highest'")
+        raise ValueError(f"cta_points={cta_points}: {FIT_CTA_POINTS} for "
+                         "every variant, 64 or 256 only for 'precomputed' at "
+                         "K <= 128 under ll_precision='highest'")
     if x.device.type == "cpu":
         if torch.is_tensor(seed):
             seed = int(seed.reshape(-1)[0])
@@ -456,10 +465,8 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
         # scratch for phi as the tensor-core pass stages it (its bf16 tiles)
         phi_t = torch.empty(lib.dpmm_assign_tc_scratch(f, k, planes),
                             dtype=torch.bfloat16, device=x.device)
-    elif k > 128:
-        # above one pass of 256 columns the exact kernel dots each point's
-        # row with its label's delta column, a row of this [K, F] copy
-        delta_t = phi_mat[:, k:].T.contiguous()
+    else:
+        delta_t = delta_rows(phi_mat, k)
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
     sub = torch.empty(n, dtype=torch.int32, device=x.device)
     stats = torch.empty((2 * k, f), dtype=torch.float32, device=x.device)
@@ -475,7 +482,7 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
                                         _ptr(pairs), d, *args, *outs)
     else:
         rc = lib.dpmm_fused_assign(x.data_ptr(), _ptr(pairs), d, *args,
-                                   cta_points // 8, *outs)
+                                   cta_points // 16, *outs)
     _build.check(rc, "fused_assign")
     fused_assign.launches[_launch_key(family_name, cta_points)] += 1
     if tensor_cores:
@@ -487,7 +494,7 @@ def reset_launches() -> None:
     """Set every launch count to 0."""
     fused_assign.launches = dict.fromkeys(
         VARIANTS + tuple(_launch_key("precomputed", c) for c in CTA_POINTS
-                         if c != 64), 0)
+                         if c != FIT_CTA_POINTS), 0)
     fused_assign.tensor_core_launches = dict.fromkeys(VARIANTS, 0)
     stats_from_labels.launches = dict.fromkeys(STATS_VARIANTS, 0)
     key_sort.launches = 0

@@ -257,14 +257,14 @@ def test_cta_points_is_a_cache_only_option(rng):
     x, valid, phi, log_w, _ = _ablate_inputs(rng, n=256, k=8)
     args = _t(x, valid, phi[:, :16], log_w)
     want = sk.fused_assign(*args, 5)
-    for cta in (32, 128):
+    for cta in (64, 256):
         for a, b in zip(sk.fused_assign(*args, 5, cta_points=cta), want):
             assert torch.equal(a, b)
     with pytest.raises(ValueError, match="cta_points"):
         sk.fused_assign(*args, 5, cta_points=48)
     with pytest.raises(ValueError, match="cta_points"):
-        sk.fused_assign(*args, 5, family_name="gaussian", cta_points=32)
-    assert "precomputed cta=32" in sk.fused_assign.launches
+        sk.fused_assign(*args, 5, family_name="gaussian", cta_points=64)
+    assert "precomputed cta=64" in sk.fused_assign.launches
 
 
 def test_profiling_trace_writes_a_chrome_trace(tmp_path):
@@ -318,7 +318,7 @@ def test_bench_refuses_a_missing_card(monkeypatch):
 def test_study_mains_rehearse_on_the_cpu(capsys):
     rows = tts.main(["4096", "2", "8", "--device", "cpu", "--reps", "1"])
     assert len(rows) == 4 * 4       # 4 tiles x (dma_only + 3 block sizes)
-    assert {r["cta_points"] for r in rows} == {None, 32, 64, 128}
+    assert {r["cta_points"] for r in rows} == {None, 64, 128, 256}
     rows = tka.main(["2048", "4", "4", "--device", "cpu", "--reps", "1"])
     assert len(rows) == 8 + 8
     assert [r["variant"] for r in rows[8:]] == [v[0] for v in tka.VARIANTS]

@@ -315,3 +315,38 @@ def test_wrappers_refuse_unknown_variants():
         sk.fused_assign(meta, valid, torch.empty((15, 8), device="meta"),
                         torch.empty(4, device="meta"), 1,
                         family_name="gaussian")
+
+
+@pytest.mark.parametrize("k", [1, 8, 129])
+def test_delta_rows_are_phis_delta_columns(rng, k):
+    """The exact kernel's delta operand: row j of the contiguous [K, F] copy
+    is phi_mat's delta column K + j, at every K."""
+    phi = torch.from_numpy(rng.standard_normal((37, 2 * k)).astype(
+        np.float32))
+    rows = sk.delta_rows(phi, k)
+    assert rows.shape == (k, 37) and rows.is_contiguous()
+    for j in range(k):
+        assert torch.equal(rows[j], phi[:, k + j])
+
+
+def test_fit_block_size_takes_every_variant_and_precision(rng):
+    """The fits' block (FIT_CTA_POINTS, the default) is accepted in every
+    variant and at every ll_precision; the study's other sizes only for the
+    f32 cache at K <= 128 under "highest"."""
+    feat, phi_mat, log_w, valid = _case(rng, n=256, d=2, k=8)
+    args = _tt(feat, valid, phi_mat, log_w)
+    assert sk.FIT_CTA_POINTS in sk.CTA_POINTS
+    for prec in sk.LL_PRECISIONS:
+        want = sk.fused_assign(*args, 5, ll_precision=prec)
+        got = sk.fused_assign(*args, 5, ll_precision=prec,
+                              cta_points=sk.FIT_CTA_POINTS)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    wide = _case(rng, n=256, d=2, k=129)
+    for cta in sk.CTA_POINTS:
+        if cta == sk.FIT_CTA_POINTS:
+            continue
+        with pytest.raises(ValueError, match="cta_points"):
+            sk.fused_assign(*_tt(*wide), 5, cta_points=cta)
+        with pytest.raises(ValueError, match="cta_points"):
+            sk.fused_assign(*args, 5, cta_points=cta, ll_precision="high")

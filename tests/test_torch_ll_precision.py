@@ -321,7 +321,7 @@ def test_wrapper_refuses_unknown_precisions_and_study_blocks_off_f32():
         sk.ll_product(torch.zeros(2, 2), torch.zeros(2, 2), "tf32")
     # the tile study's other block sizes belong to the exact kernel
     with pytest.raises(ValueError, match="cta_points"):
-        sk.fused_assign(x, valid, phi, log_w, 1, cta_points=128,
+        sk.fused_assign(x, valid, phi, log_w, 1, cta_points=256,
                         ll_precision="default")
     # a tensor off the CPU goes to the kernel at every precision, or raises
     for prec in sk.LL_PRECISIONS:
