@@ -34,6 +34,12 @@ through every path of the port, at the config's default ll_precision
 * multinomial: 50k x 100-d and 1M x 100-d;
 * under "highest", one small fit of every other variant (the exact
   kernels' paths), and under "high" a 4-corner and a 200k x 32-d fit;
+* persistence at the flagship's width: a saving fit, two resumes of its
+  sweep-60 checkpoint (K=64, ``predict == labels``, ``cluster_params``,
+  ``cluster_statistics``, kernels A and B launched, the same labels), a
+  bit-exact continuation without smart splits, and the CLI's fit and
+  ``--resume`` in subprocesses; then ``cluster_statistics`` over the 10M x
+  64-d fit's points;
 
 and profiles 8 steady sweeps of the flagship fit (f32 cache, under
 "default" and "highest") and of each 10M x 64-d fit with torch.profiler.
@@ -1439,6 +1445,197 @@ def profile_sweeps(torch, res, x, name: str, smi: str, sweeps: int = 8):
     return dict(parts=out, wall_ms=wall, featurize_s=feat_s)
 
 
+class SaveTimer:
+    """Times every ``DPMMModel.save`` (a checkpoint written) and every
+    ``load_checkpoint`` a resume makes, with the file's size, while
+    installed."""
+
+    def __init__(self, torch):
+        import dpmmsubclusters_tpu_torch.api as api
+
+        self.torch, self.api, self.events = torch, api, []
+        self.save, self.load = api.DPMMModel.save, api.load_checkpoint
+
+    def __enter__(self):
+        def save(model, path):
+            t0 = time.perf_counter()
+            self.save(model, path)
+            self.events.append(("write", path, time.perf_counter() - t0))
+
+        def load(path):
+            t0 = time.perf_counter()
+            out = self.load(path)
+            self.events.append(("read", path, time.perf_counter() - t0))
+            return out
+
+        self.api.DPMMModel.save, self.api.load_checkpoint = save, load
+        return self
+
+    def __exit__(self, *exc):
+        self.api.DPMMModel.save, self.api.load_checkpoint = (self.save,
+                                                             self.load)
+
+    def report(self, smi: str) -> str:
+        import os
+
+        parts = []
+        for what in ("write", "read"):
+            secs = [t for w, _, t in self.events if w == what]
+            sizes = {os.path.getsize(p) for w, p, _ in self.events
+                     if w == what}
+            parts.append(f"{len(secs)} {what}s of {min(sizes) / 1e6:.2f}-"
+                         f"{max(sizes) / 1e6:.2f} MB: median "
+                         f"{np.median(secs):.4f} s, max {max(secs):.4f} s")
+        return "; ".join(parts) + f" ({smi})"
+
+
+def run_persistence(torch, x, gt, flag: dict, fused_ms: float,
+                    smi: str) -> dict:
+    """The persistence path at the flagship's full width, on the card:
+
+    * ``fit(enable_saving=True)`` of the flagship (f32 cache, "default"),
+      saving every 20 sweeps (the per-sweep path); ``run_from_checkpoint``
+      of sweep 60 to 120: K=64, NMI >= 0.999, ``predict == labels`` on
+      every point, 64 cluster parameters, finite ``cluster_statistics``
+      with mean responsibility >= 0.99, kernel A launched during the
+      resume; and twice of sweep 20 to 120, while the chain still splits:
+      K=64, kernels A and B launched during each (counts set to 0 just
+      before it; from sweep 60 the chain has converged, nothing splits, and
+      kernel B runs only inside kernel A's launches, counted under A), the
+      two resumes' labels equal bit for bit;
+    * continuation: with ``smart_splits=False``, 40 sweeps saving at 20,
+      and a resume of sweep 20 to 40 equal to them bit for bit;
+    * the CLI: ``python3 -m dpmmsubclusters_tpu_torch.run params.json`` on
+      the flagship's ``.npy`` files, and ``--resume`` of sweep 60 to 120,
+      each printing ``K = 64``.
+
+    Logs each checkpoint's write and read seconds and size, and ms/sweep
+    of the saving fit beside ``fused_ms``, the fused-block fit's."""
+    import json as json_mod
+    import subprocess
+
+    import dpmmsubclusters_tpu_torch as dpmm
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    out = {}
+    cache = dict(precompute_features=True, feature_dtype="float32")
+    with tempfile.TemporaryDirectory() as tmp, SaveTimer(torch) as timer:
+        saving = dict(enable_saving=True, model_save_interval=20,
+                      save_path=f"{tmp}/", save_file_prefix="checkpoint_")
+        t0 = time.perf_counter()
+        res = dpmm.fit(x, device="cuda", verbose=False, **cache, **flag,
+                       **saving)
+        secs = time.perf_counter() - t0
+        saving_ms = float(np.median(res.history.times[-40:])) * 1e3
+        assert res.k == K_TRUE_FLAG, res.k
+        log(f"persistence: saving fit K={res.k} NMI="
+            f"{dpmm.nmi(gt, res.labels):.6f} in {secs:.1f} s, median "
+            f"{saving_ms:.2f} ms/sweep over the last 40 sweeps (one sweep at "
+            f"a time, saving every 20) against {fused_ms:.2f} fused ({smi})")
+        ck60 = f"{tmp}/checkpoint_60.npz"
+        labels = []
+        for step in (60, 20, 20):
+            sk.reset_launches()
+            t0 = time.perf_counter()
+            r = dpmm.run_from_checkpoint(f"{tmp}/checkpoint_{step}.npz", x,
+                                         iters=120, device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {fn.__name__: dict(fn.launches) for fn in
+                      (sk.fused_assign, sk.stats_from_labels)}
+            assert counts["fused_assign"]["precomputed"] > 0, counts
+            if step == 20:
+                assert counts["stats_from_labels"]["precomputed"] > 0, counts
+                labels.append(r.model.labels_raw)
+            else:
+                r60 = r
+            nmi = dpmm.nmi(gt, r.labels)
+            assert r.k == K_TRUE_FLAG and nmi >= 0.999, (r.k, nmi)
+            assert len(r.history.k) == 120 - step and r.model.step == 120
+            log(f"persistence: resume of sweep {step} to 120: K={r.k} "
+                f"NMI={nmi:.6f} in {secs:.1f} s, median "
+                f"{np.median(r.history.times[-40:]) * 1e3:.2f} ms/sweep, "
+                f"launches during the resume {counts} ({smi})")
+        assert np.array_equal(labels[0], labels[1]), "resumes differ"
+        r = r60
+        t0 = time.perf_counter()
+        pred, _ = r.model.predict(x, return_probs=False)
+        pred_s = time.perf_counter() - t0
+        assert np.array_equal(pred, r.labels), "predict != labels"
+        params = r.model.cluster_params()
+        assert len(params) == K_TRUE_FLAG, len(params)
+        t0 = time.perf_counter()
+        avg_ll, avg_prob = r.model.cluster_statistics(x, r.labels)
+        stats_s = time.perf_counter() - t0
+        assert np.isfinite(avg_ll).all() and np.isfinite(avg_prob).all()
+        assert avg_prob.mean() >= 0.99, avg_prob.mean()
+        log(f"persistence: predict == labels on {len(x)} points "
+            f"({pred_s:.2f} s), {len(params)} cluster parameters, "
+            f"cluster_statistics in {stats_s:.2f} s (mean responsibility "
+            f"{avg_prob.mean():.6f}), the two resumes' labels equal ({smi})")
+        del r, r60, res
+
+        # continuation without smart splits: the file carries the chain
+        cont = dict(flag, iters=40, smart_splits=False)
+        saving20 = dict(saving, save_file_prefix="cont_")
+        whole = dpmm.fit(x, device="cuda", verbose=False, **cache, **cont,
+                         **saving20)
+        part = dpmm.run_from_checkpoint(f"{tmp}/cont_20.npz", x, iters=40,
+                                        device="cuda")
+        assert np.array_equal(part.model.labels_raw, whole.model.labels_raw)
+        assert np.array_equal(part.model.sublabels, whole.model.sublabels)
+        assert part.history.k == whole.history.k[20:]
+        log(f"persistence: smart_splits=False, 40 sweeps saving at 20, and "
+            f"the resume of sweep 20 to 40 equal bit for bit (K="
+            f"{whole.k}) ({smi})")
+        del whole, part
+        out["files"] = timer.report(smi)
+        log(f"persistence: checkpoints: {out['files']}")
+
+        # the CLI, a subprocess on the card (its default device)
+        np.save(f"{tmp}/x.npy", x)
+        np.save(f"{tmp}/gt.npy", gt)
+        with open(f"{tmp}/params.json", "w") as f:
+            json_mod.dump(dict(flag, data_path=f"{tmp}/x.npy",
+                               gt_path=f"{tmp}/gt.npy", verbose=False,
+                               **cache), f)
+        root = pathlib.Path(__file__).resolve().parent
+        for args in ([], ["--resume", ck60, "--iters", "120"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "dpmmsubclusters_tpu_torch.run",
+                 *args, f"{tmp}/params.json"],
+                cwd=root, capture_output=True, text=True, timeout=600)
+            lines = proc.stdout.strip().splitlines()
+            log(f"persistence: CLI {' '.join(args) or 'fit'}: rc "
+                f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+                f"{' | '.join(lines[-3:])} ({smi})")
+            if proc.returncode != 0 or f"K = {K_TRUE_FLAG}" not in lines:
+                log(proc.stderr[-4000:])
+                raise AssertionError(f"CLI {args}: rc {proc.returncode}")
+    free(torch)
+    out.update(saving_ms=saving_ms, fused_ms=fused_ms)
+    return out
+
+
+def huge_statistics(torch, res, x, smi: str) -> None:
+    """``cluster_statistics`` over all of a 10M-point fit's points, with
+    its seconds and the peak device memory during the call."""
+    free(torch)
+    base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    avg_ll, avg_prob = res.model.cluster_statistics(x, res.labels)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert np.isfinite(avg_ll).all() and np.isfinite(avg_prob).all()
+    assert len(avg_ll) == res.k
+    log(f"cluster_statistics over {len(x)} x {x.shape[1]} points, K={res.k}:"
+        f" {secs:.2f} s, peak device memory {peak:.2f} GB ({base:.2f} GB "
+        f"resident before), mean responsibility {avg_prob.mean():.6f} "
+        f"({smi})")
+
+
 # the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
 CARD_TESTS = 95
 
@@ -1610,6 +1807,10 @@ def main() -> int:
         f"{w} {v:.2f} ({N_FLAG / v * 1e3:.4g} point-sweeps/s)"
         for w, v in ms.items()) + f" ({smi})")
     del r
+    free(torch)
+    t0 = time.perf_counter()
+    run_persistence(torch, x, gt, flag, ms["float32 cache"], smi)
+    log(f"persistence phase done in {time.perf_counter() - t0:.1f} s")
 
     # multinomial (benchmarks/suite.py:69-76, and its 1M-document shape)
     mnm = dict(family="multinomial", alpha=1.0, seed=1, burnout=10)
@@ -1640,6 +1841,7 @@ def main() -> int:
     assert r["res"].k == 100 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
     launches["gaussian"] = r["launches"]
     profile_sweeps(torch, r["res"], x, "10M x 64-d (no cache)", smi)
+    huge_statistics(torch, r["res"], x, smi)
     del r
     free(torch)
     r = run_fit(torch, "10M x 64-d (hybrid cache)", x, gt, hybrid,

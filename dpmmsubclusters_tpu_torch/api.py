@@ -1,11 +1,13 @@
 """Public API: ``fit`` and the fitted model.
 
 PyTorch counterpart of :mod:`dpmmsubclusters_tpu.api` for the Gaussian and
-multinomial families on one device: the same ``fit`` signature and config
-fields, the same centering and standardization of Gaussian data with the
-prior mapped along, and a ``DPMMModel`` with ``labels``, ``k``, ``weights``,
-``counts``, ``predict`` and ``log_posterior``.  ``fit`` runs on
-``device="cuda"`` by default and raises when no card is present; pass
+multinomial families on one device: the same ``fit`` and
+``run_from_checkpoint`` signatures and config fields, the same centering
+and standardization of Gaussian data with the prior mapped along, and the
+same ``DPMMModel`` (``labels``, ``k``, ``weights``, ``counts``,
+``cluster_params``, ``predict``, ``log_posterior``, ``cluster_statistics``,
+``save``), whose checkpoints each package loads.  The entry points run on
+``device="cuda"`` by default and raise when no card is present; pass
 ``device="cpu"`` for the plain PyTorch path.
 """
 from __future__ import annotations
@@ -17,12 +19,14 @@ import numpy as np
 import torch
 
 from .config import DPMMConfig
+from .interop import table_from_jax
+from .io.checkpoint import (jax_key, load_checkpoint, restore_generator,
+                            save_checkpoint, seed_from_key)
 from .priors import GAUSSIAN, MULTINOMIAL
-from .sampler.driver import (DPMMEngine, IterStats, desired_tier, run_loop,
-                             tier_sequence)
+from .sampler.driver import (DPMMEngine, DPMMState, IterStats, desired_tier,
+                             migrate, run_loop, tier_sequence)
 from .sampler.table import log_posterior as _table_log_posterior
 
-_NOT_PORTED = "see ROADMAP.md for the slices of the port still to come"
 _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
 
 
@@ -49,9 +53,11 @@ def _resolve_precompute(fam, cfg: DPMMConfig, n: int, d: int) -> DPMMConfig:
     return cfg.replace(precompute_features=bool(pf))
 
 
-def _tier_setup(cfg: DPMMConfig):
+def _tier_setup(cfg: DPMMConfig, k_start: Optional[int] = None):
     """(starting capacity, tier list or None) for adaptive table capacity;
-    a ``max_clusters`` cap bounds the useful capacity."""
+    a ``max_clusters`` cap bounds the useful capacity.  ``k_start`` (a
+    checkpointed table's width) is taken as it is: the tier loop moves it
+    toward the tiers at the first boundary."""
     if not cfg.resolved_auto_tier():
         return cfg.k_max, None
     ceiling = cfg.k_max
@@ -61,8 +67,10 @@ def _tier_setup(cfg: DPMMConfig):
         if fits:
             ceiling = min(ceiling, fits[0])
     tiers = tier_sequence(ceiling)
-    init_active = cfg.init_clusters + (1 if cfg.outlier_mod > 0 else 0)
-    return min(desired_tier(init_active, tiers[0], tiers), ceiling), tiers
+    if k_start is None:
+        init_active = cfg.init_clusters + (1 if cfg.outlier_mod > 0 else 0)
+        k_start = min(desired_tier(init_active, tiers[0], tiers), ceiling)
+    return k_start, tiers
 
 
 _PRIOR_SHAPES = {
@@ -110,7 +118,7 @@ def _resolve_family(family, prior):
 def _resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("fit(device='cuda'): CUDA is not available; pass "
+        raise RuntimeError("device='cuda': CUDA is not available; pass "
                            "device='cpu' for the plain PyTorch path")
     return device
 
@@ -128,6 +136,12 @@ class DPMMModel:
     sublabels: np.ndarray       # {0,1}, [n_points]
     step: int = 0
     scale: Optional[np.ndarray] = None  # x' = scale * (x - shift)
+    # the random state in place of the JAX package's ``key``: the fit's seed
+    # (the checkpoint's JAX key is derived from it and ``step``) and the
+    # generator's state (``torch.Generator.get_state()``) on ``gen_device``
+    seed: int = 0
+    gen_state: Optional[np.ndarray] = None
+    gen_device: str = "cpu"
 
     @property
     def _scale(self) -> np.ndarray:
@@ -157,6 +171,33 @@ class DPMMModel:
     @property
     def counts(self) -> np.ndarray:
         return self.table["stats"]["n"][:, 0].cpu().numpy()[self.active_slots]
+
+    def cluster_params(self) -> list:
+        """Per active cluster (dense order) a dict of its slot, posterior
+        hyperparameters and sampled parameters, mapped back to the data
+        space (de-standardized and de-centred): ``mu``, ``cov`` and the
+        posterior's ``m``/``psi`` for the Gaussian family, ``log_p`` for the
+        multinomial; and ``weight``."""
+        out = []
+        shift, s = self.shift, self._scale
+        post_all = {k: v.cpu().numpy() for k, v in self.table["post"].items()}
+        params = {k: v.cpu().numpy() for k, v in self.table["params"].items()}
+        weights = self.weights
+        for dense_i, slot in enumerate(self.active_slots):
+            post = {k: v[slot, 0] for k, v in post_all.items()}
+            entry = {"slot": int(slot), "posterior": post}
+            if "m" in post:
+                post["m"] = post["m"] / s + shift
+                if "psi" in post:
+                    post["psi"] = post["psi"] / (s[:, None] * s[None, :])
+                entry["mu"] = params["mu"][slot, 0] / s + shift
+                entry["cov"] = (np.linalg.inv(params["prec"][slot, 0])
+                                / (s[:, None] * s[None, :]))
+            else:
+                entry["log_p"] = params["log_p"][slot, 0]
+            entry["weight"] = weights[dense_i]
+            out.append(entry)
+        return out
 
     def predict(self, x: np.ndarray, return_probs: bool = True,
                 chunk: int = 1 << 16):
@@ -189,6 +230,54 @@ class DPMMModel:
         lp = _table_log_posterior(self.family, self.table, self.cfg.alpha,
                                   float(self.n_points))
         return float(lp) + self.n_points * float(np.log(self._scale).sum())
+
+    def cluster_statistics(self, x: np.ndarray, labels: np.ndarray,
+                           chunk: int = 1 << 16):
+        """Average per-cluster log-likelihood and responsibility of ``x``
+        under the sampled cluster distributions (reference
+        ``cluster_statistics``, src/dp-parallel-sampling.jl:509-530, with the
+        correct Gaussian normalizer), log-likelihoods in the data space.
+        ``labels`` are dense 0-based; a label outside ``[0, K)`` counts
+        nowhere.  Returns ``(avg_ll, avg_prob)``, float64 [K].
+
+        The active slots' ``phi`` is selected once; then ``chunk`` rows at a
+        time go to the model's device, where ``features(x) @ phi.T`` (a
+        plain float32 product, as in the JAX package, with TF32 off as
+        PyTorch leaves it) gives the ``[chunk, K]`` log-likelihoods and
+        each chunk's sums are added in float64: the ``[N, K]`` matrix never
+        exists."""
+        dev = self.table["active"].device
+        x = (np.asarray(x, np.float32) - self.shift) * self._scale
+        labels = np.asarray(labels, np.int32).reshape(-1)
+        slots = torch.as_tensor(self.active_slots, device=dev)
+        k = len(slots)
+        phi_t = self.table["params"]["phi"][slots, 0].T.contiguous()
+        ids = torch.arange(k, device=dev)
+        acc = torch.zeros((3, k), dtype=torch.float64, device=dev)
+        for p0 in range(0, len(x), chunk):
+            xc = torch.as_tensor(x[p0:p0 + chunk]).to(dev)
+            lc = torch.as_tensor(labels[p0:p0 + chunk]).to(dev)
+            ll = self.family.features(xc) @ phi_t              # [C, K]
+            resp = torch.softmax(ll, dim=-1)
+            oh = (lc[:, None] == ids).to(torch.float32)
+            acc += torch.stack([(oh * ll).sum(0), (oh * resp).sum(0),
+                                oh.sum(0)]).double()
+        s_ll, s_resp, cnt = acc.cpu().numpy()
+        cnt = np.maximum(cnt, 1.0)
+        # density change of variables back to the data space
+        return s_ll / cnt + float(np.log(self._scale).sum()), s_resp / cnt
+
+    def save(self, path: str):
+        """Write a checkpoint (:mod:`.io.checkpoint`) that either package
+        resumes."""
+        save_checkpoint(
+            path, table=self.table, labels=self.labels_raw,
+            sublabels=self.sublabels, key=jax_key(self.seed, self.step),
+            step=self.step, shift=self.shift, cfg=self.cfg,
+            family_name=self.family.name, n_points=self.n_points,
+            scale=self.scale, gen_state=self.gen_state,
+            gen_device=self.gen_device,
+        )
 
 
 @dataclasses.dataclass
@@ -252,9 +341,6 @@ def fit(
         overrides.setdefault("alpha", float(alpha))
     if overrides:
         cfg = cfg.replace(**overrides)
-    if cfg.enable_saving:
-        raise NotImplementedError(
-            f"enable_saving: checkpoints are not ported yet; {_NOT_PORTED}")
     dev = _resolve_device(device)
 
     fam = _resolve_family(family, prior)
@@ -298,12 +384,126 @@ def fit(
     state, hist = run_loop(
         engine, state, points, valid, n_total, cfg.iters,
         gt=np.asarray(gt) if gt is not None else None, n_valid=n,
+        callback=_save_callback(fam, cfg, shift, n, scale, seed),
         tiers=tiers,
     )
-    model = DPMMModel(
+    model = _model_from_state(fam, cfg, state, shift, n, scale, seed)
+    return FitResult(model=model, history=hist)
+
+
+def _model_from_state(fam, cfg: DPMMConfig, state: DPMMState, shift, n: int,
+                      scale, seed: int) -> DPMMModel:
+    return DPMMModel(
         family=fam, table=state.table, shift=np.asarray(shift, np.float32),
-        cfg=cfg, n_points=n, labels_raw=state.labels.cpu().numpy(),
-        sublabels=state.sublabels.cpu().numpy(), step=state.step,
-        scale=np.asarray(scale, np.float32),
+        cfg=cfg, n_points=n, labels_raw=state.labels.cpu().numpy()[:n],
+        sublabels=state.sublabels.cpu().numpy()[:n], step=state.step,
+        scale=None if scale is None else np.asarray(scale, np.float32),
+        seed=int(seed), gen_state=state.gen.get_state().numpy(),
+        gen_device=state.gen.device.type,
     )
+
+
+def _save_callback(fam, cfg: DPMMConfig, shift, n: int, scale, seed: int):
+    """With ``cfg.enable_saving``, the ``run_loop`` callback that writes
+    ``{save_path}{save_file_prefix}{it + 1}.npz`` every
+    ``model_save_interval`` sweeps (reference run_model,
+    src/dp-parallel-sampling.jl:396-401); else None."""
+    if not cfg.enable_saving:
+        return None
+
+    def callback(it, st, _metrics):
+        if (it + 1) % cfg.model_save_interval == 0:
+            _model_from_state(fam, cfg, st, shift, n, scale, seed).save(
+                f"{cfg.save_path}{cfg.save_file_prefix}{it + 1}.npz")
+
+    return callback
+
+
+def _check_capacity(cfg: DPMMConfig, tiers, table) -> None:
+    """Refuse a resume that would run below the checkpoint's live clusters
+    (the JAX package's resume shrinks the table under them and drops
+    clusters, ROADMAP R1): the fixed ``k_max``, the tier ceiling and
+    ``max_clusters`` must each hold them."""
+    active = np.asarray(table["active"], bool)
+    live = int(active.sum())
+    real = int((active & ~np.asarray(table["is_outlier"], bool)).sum())
+    cap = tiers[-1] if tiers is not None else cfg.k_max
+    what = "the tier ceiling" if tiers is not None else "k_max"
+    if cap < live:
+        raise ValueError(
+            f"resume would drop clusters: the checkpoint has {live} live "
+            f"slots, but {what} is {cap}; raise k_max (or max_clusters)")
+    if cfg.max_clusters is not None and cfg.max_clusters < real:
+        raise ValueError(
+            f"resume would drop clusters: the checkpoint has {real} live "
+            f"clusters, above max_clusters={cfg.max_clusters}")
+
+
+def run_from_checkpoint(
+    path: str,
+    data,
+    *,
+    iters: Optional[int] = None,
+    gt=None,
+    device="cuda",
+    transposed: bool = False,
+    **overrides,
+) -> FitResult:
+    """Resume a run from a checkpoint of either package (reference
+    ``run_model_from_checkpoint``, src/dp-parallel-sampling.jl:428-447).
+    ``data`` must be the dataset the checkpoint was trained on; any
+    :class:`DPMMConfig` field of the checkpoint's config can be overridden.
+    The engine starts at the saved table's width (a fixed ``k_max`` migrates
+    it there) and continues from sweep ``step`` with the saved generator
+    state (:func:`.io.checkpoint.restore_generator`).  Raises
+    ``ValueError`` for data of the wrong size, and when the capacity or
+    ``max_clusters`` asked for lies below the checkpoint's live clusters."""
+    ck = load_checkpoint(path)
+    cfg: DPMMConfig = ck["config"]
+    if iters is not None:
+        overrides["iters"] = iters
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    fam = _FAMILIES[ck["family"]]
+
+    x = _prepare_data(data, transposed)
+    n, d = x.shape
+    if n != ck["n_points"]:
+        raise ValueError(
+            f"checkpoint was trained on {ck['n_points']} points, got {n}")
+    dev = _resolve_device(device)
+    shift = np.asarray(ck["shift"], np.float32)
+    scale = (np.ones(d, np.float32) if ck["scale"] is None
+             else np.asarray(ck["scale"], np.float32))
+    x = (x - shift) * scale
+
+    cfg = _resolve_precompute(fam, cfg, n, d)
+    k_saved = int(ck["table"]["active"].shape[0])
+    k_start, tiers = _tier_setup(cfg, k_start=k_saved)
+    _check_capacity(cfg, tiers, ck["table"])
+    engine = DPMMEngine(fam, cfg.replace(k_max=int(k_start)), dev)
+    points, valid, n_total = engine.shard_points(x)
+    if cfg.precompute_features:
+        # the bf16 dither: the original fit's when it was seeded
+        points = engine.featurize(
+            points, seed=cfg.seed if cfg.seed is not None else 0)
+
+    def stream(a):
+        return torch.as_tensor(np.asarray(a, np.int32).reshape(-1)).to(dev)
+
+    state = DPMMState(table=table_from_jax(ck["table"], dev),
+                      labels=stream(ck["labels"]),
+                      sublabels=stream(ck["sublabels"]),
+                      gen=restore_generator(ck, dev), step=ck["step"])
+    if tiers is None and k_saved != cfg.k_max:
+        state = migrate(fam, state, cfg.k_max)
+    seed = seed_from_key(ck["key"], ck["step"])
+    state, hist = run_loop(
+        engine, state, points, valid, n_total, cfg.iters,
+        first_iter=ck["step"],
+        gt=np.asarray(gt) if gt is not None else None, n_valid=n,
+        callback=_save_callback(fam, cfg, shift, n, scale, seed),
+        tiers=tiers,
+    )
+    model = _model_from_state(fam, cfg, state, shift, n, scale, seed)
     return FitResult(model=model, history=hist)

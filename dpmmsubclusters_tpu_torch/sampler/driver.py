@@ -9,6 +9,8 @@ time and pick the next table-capacity tier.
 Scheduling follows ``run_model`` (src/dp-parallel-sampling.jl:354-361):
 ``final`` = iter >= iters - argmax_sample_stop (argmax labels) and
 ``no_more_splits`` = iter >= iters - split_stop, or K >= max_clusters.
+``verbose`` or a ``callback`` selects the per-sweep path instead, as in the
+JAX package: one sweep at a time, each followed by a sync.
 
 The bf16 feature caches (``feature_dtype`` "bfloat16" and "hybrid") are
 built with stochastic rounding, as the JAX package builds them, but their
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -251,6 +253,18 @@ class DPMMEngine:
         metrics = {name: torch.stack([m[name] for m in ms]) for name in ms[0]}
         return state, metrics
 
+    def smart_refresh(self, state: DPMMState, points, valid) -> DPMMState:
+        """The smart sub-label pass of :meth:`step_block` on its own, for
+        the per-sweep path: the slots born since the last call get their
+        smart init.  No-op when smart splits are resolved off; otherwise
+        the pass reads its ``needs_smart`` flag once (one host sync)."""
+        if self._smart is None:
+            return state
+        table, sublabels = self._smart(state.table, state.labels,
+                                       state.sublabels, points, valid)
+        return DPMMState(table, state.labels, sublabels, state.gen,
+                         state.step)
+
 
 def migrate(family, state: DPMMState, k_new: int) -> DPMMState:
     """Resize the table to ``k_new`` slots and remap the labels."""
@@ -259,9 +273,21 @@ def migrate(family, state: DPMMState, k_new: int) -> DPMMState:
                      state.gen, state.step)
 
 
+def _tier_step(family, state: DPMMState, k_now: int,
+               tiers: list) -> DPMMState:
+    """Migrate the table to ``desired_tier``, never below the live
+    clusters."""
+    cur = state.table["active"].shape[0]
+    want = desired_tier(k_now, cur, tiers)
+    if want < k_now:
+        want = cur
+    return migrate(family, state, want) if want != cur else state
+
+
 def run_loop(engine: DPMMEngine, state: DPMMState, points, valid, n_total,
              iters: int, *, first_iter: int = 0,
              gt: Optional[np.ndarray] = None, n_valid: Optional[int] = None,
+             callback: Optional[Callable] = None,
              verbose: Optional[bool] = None,
              tiers: Optional[list] = None) -> tuple:
     """The training loop (reference ``run_model``,
@@ -273,9 +299,17 @@ def run_loop(engine: DPMMEngine, state: DPMMState, points, valid, n_total,
     truth the block's NMI/VI are computed from the labels afterwards (not
     timed).  ``tiers`` turns on adaptive table capacity: at each block
     boundary the table migrates to ``desired_tier``, never below the live
-    cluster count."""
+    cluster count.
+
+    ``verbose`` or ``callback(it, state, metrics)`` (called after sweep
+    ``it``, ``first_iter <= it < iters``) selects :func:`_run_each` instead,
+    the per-sweep path."""
     cfg = engine.cfg
     verbose = cfg.verbose if verbose is None else verbose
+    if verbose or callback is not None:
+        return _run_each(engine, state, points, valid, n_total, iters,
+                         first_iter=first_iter, gt=gt, n_valid=n_valid,
+                         callback=callback, verbose=verbose, tiers=tiers)
     hist = IterStats.empty()
     block = max(1, cfg.fused_block)
     it = first_iter
@@ -299,18 +333,53 @@ def run_loop(engine: DPMMEngine, state: DPMMState, points, valid, n_total,
             labels_h = state.labels.cpu().numpy()[:n_valid]
             hist.nmi.extend([nmi_fn(gt, labels_h)] * b)
             hist.vi.extend([varinfo(gt, labels_h)] * b)
+        if tiers is not None and it < iters:
+            state = _tier_step(engine.family, state, ks[-1], tiers)
+    return state, hist
+
+
+def _run_each(engine: DPMMEngine, state: DPMMState, points, valid, n_total,
+              iters: int, *, first_iter: int, gt, n_valid, callback,
+              verbose: bool, tiers) -> tuple:
+    """The per-sweep path of :func:`run_loop` (the JAX package's
+    ``run_loop`` with ``verbose`` or a callback): before each sweep a tier
+    step and, after the first sweep and up to ``iters - split_stop``, the
+    smart refresh of the slots the last sweep split off (the fused path
+    runs it after each block instead); after each sweep one sync, one
+    ``hist`` entry, a printed line when ``verbose``, then ``callback``."""
+    cfg = engine.cfg
+    cap = cfg.max_clusters
+    hist = IterStats.empty()
+    k_now = int(active_count(state.table))
+    for it in range(first_iter, iters):
+        t0 = time.perf_counter()
+        if tiers is not None:
+            state = _tier_step(engine.family, state, k_now, tiers)
+        if first_iter < it <= iters - cfg.split_stop:
+            state = engine.smart_refresh(state, points, valid)
+        final = it >= iters - cfg.argmax_sample_stop
+        no_more_splits = (it >= iters - cfg.split_stop
+                          or (cap is not None and k_now >= cap))
+        state, metrics = engine.step(state, points, valid, n_total, final,
+                                     no_more_splits)
+        k_now = int(metrics["k"])                  # the sweep's fence
+        dt = time.perf_counter() - t0
+        hist.k.append(k_now)
+        hist.log_posterior.append(float(metrics["log_posterior"]))
+        hist.times.append(dt)
+        if gt is not None:
+            from ..utils.metrics import nmi as nmi_fn, varinfo
+
+            labels_h = state.labels.cpu().numpy()[:n_valid]
+            hist.nmi.append(nmi_fn(gt, labels_h))
+            hist.vi.append(varinfo(gt, labels_h))
         if verbose:
-            msg = (f"iter {it}: K={ks[-1]} "
+            msg = (f"iter {it + 1}: K={k_now} "
                    f"log_post={hist.log_posterior[-1]:.2f} "
-                   f"t={dt / b * 1e3:.1f}ms/sweep")
+                   f"t={dt * 1e3:.1f}ms")
             if gt is not None:
                 msg += f" nmi={hist.nmi[-1]:.3f} vi={hist.vi[-1]:.3f}"
             print(msg, flush=True)
-        if tiers is not None and it < iters:
-            cur = state.table["active"].shape[0]
-            want = desired_tier(ks[-1], cur, tiers)
-            if want < ks[-1]:
-                want = cur  # never shrink below the live clusters
-            if want != cur:
-                state = migrate(engine.family, state, want)
+        if callback is not None:
+            callback(it, state, metrics)
     return state, hist

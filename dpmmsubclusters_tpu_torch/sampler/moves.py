@@ -55,6 +55,23 @@ def _uniform(gen, shape, device):
     return torch.rand(shape, generator=gen, device=device).clamp_(min=1e-37)
 
 
+def converged(hist: torch.Tensor, reference_gate: bool = False):
+    """The splittable gate's test of a full history window [K, B]: its mean
+    is at most 1e-2 above the newest value (``sample_clusters!``,
+    src/shared_actions.jl:41-66).  The unbiased gate takes the mean less
+    the newest value as the mean of the differences, which is exactly 0
+    for a constant window; the JAX package's float32 sum of values near
+    2.5e5 (resolution 0.03) can leave a constant window 0.016 above and the
+    slot never splittable (ROADMAP R7).  ``reference_gate`` keeps the
+    reference's 1/(B - 0.1) weight on the plain sum."""
+    b = hist.shape[1]
+    if reference_gate:
+        excess = hist.sum(-1) / (b - 0.1) - hist[:, -1]
+    else:
+        excess = (hist - hist[:, -1:]).sum(-1) / b
+    return torch.isfinite(excess) & (excess < 1e-2)
+
+
 def sample_params_step(gen, table, alpha: float, outlier_mod: float, family,
                        reference_gate: bool = False,
                        freeze_outlier: bool = False):
@@ -85,11 +102,8 @@ def sample_params_step(gen, table, alpha: float, outlier_mod: float, family,
                              table["stats"], mask3, cache=cache)
     newest = lm[:, 1] + lm[:, 2]
     hist = torch.cat([table["hist"][:, 1:], newest[:, None]], dim=-1)
-    b = hist.shape[1]
-    denom = (b - 0.1) if reference_gate else float(b)
-    avg = hist.sum(-1) / denom
-    converged = torch.isfinite(avg) & ((avg - hist[:, -1]) < 1e-2)
-    splittable = (table["splittable"] | converged) & active
+    splittable = (table["splittable"] | converged(hist, reference_gate)) \
+        & active
     hist = torch.where(active[:, None], hist, NEG_INF)
 
     counts = n[:, 0]

@@ -12,16 +12,33 @@ from __future__ import annotations
 import torch
 
 
-def top_eigvec(mat: torch.Tensor, iters: int = 25) -> torch.Tensor:
-    """Principal eigenvector of a batch of symmetric PSD matrices [K, D, D]
-    by power iteration from the uniform vector."""
-    k, d, _ = mat.shape
-    v = torch.full((k, d), d ** -0.5, dtype=mat.dtype, device=mat.device)
+def _power(mat: torch.Tensor, v: torch.Tensor, iters: int) -> torch.Tensor:
     for _ in range(iters):
         w = torch.einsum("kde,ke->kd", mat, v)
         nrm = torch.linalg.vector_norm(w, dim=-1, keepdim=True)
         v = torch.where(nrm > 1e-20, w / torch.clamp(nrm, min=1e-20), v)
     return v
+
+
+def top_eigvec(mat: torch.Tensor, iters: int = 25) -> torch.Tensor:
+    """Principal eigenvector of a batch of symmetric PSD matrices [K, D, D]
+    by power iteration from the uniform vector, as the JAX package starts,
+    and from the alternating-sign vector; the second is kept where its
+    Rayleigh quotient is larger by more than 1e-4.  A uniform start that is
+    itself an eigenvector (points placed symmetrically, e.g. three corners
+    of a square, whose minor axis is the diagonal) never leaves it in
+    exact arithmetic, and the 2-means would then split along the minor
+    axis; the JAX package escapes such a start only by its rounding."""
+    k, d, _ = mat.shape
+    u = torch.full((k, d), d ** -0.5, dtype=mat.dtype, device=mat.device)
+    sign = 1.0 - 2.0 * (torch.arange(d, device=mat.device) % 2)
+    v1, v2 = _power(mat, u, iters), _power(mat, u * sign, iters)
+
+    def rayleigh(v):
+        return torch.einsum("kd,kde,ke->k", v, mat, v)
+
+    better = rayleigh(v2) > rayleigh(v1) * (1.0 + 1e-4) + 1e-30
+    return torch.where(better[:, None], v2, v1)
 
 
 def _slot_sums(labels: torch.Tensor, vals: torch.Tensor, k: int):

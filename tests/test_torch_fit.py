@@ -119,14 +119,17 @@ def test_fit_runs_outlier_tiers_and_exact_stats():
 
 
 def test_fit_refusals():
-    """No card: ``device="cuda"`` raises.  Checkpoints are not ported yet;
-    both bf16 cache layouts are, and fit takes them."""
+    """No card: ``device="cuda"`` raises.  Multi-process mode is not ported
+    yet, and the CLI's ``--distributed`` says so; both bf16 cache layouts
+    are, and fit takes them."""
+    from dpmmsubclusters_tpu_torch import run
+
     x, _ = four_corners(16)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tdpmm.fit(x, iters=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdpmm.fit(x, iters=1, device="cpu", enable_saving=True)
+        run.main(["params.json", "--distributed", "--device", "cpu"])
     for dt in ("bfloat16", "hybrid"):
         res = tdpmm.fit(x, iters=1, device="cpu", verbose=False,
                         feature_dtype=dt)

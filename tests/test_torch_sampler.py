@@ -315,3 +315,41 @@ def test_state_from_jax_flattens_streams():
     np.testing.assert_array_equal(st.sublabels.numpy(),
                                   (labels % 2).reshape(-1))
     assert st.table["active"].dtype == torch.bool
+
+
+def test_gate_of_a_constant_window_at_large_magnitude():
+    """A constant history window passes the splittable gate in the port at
+    any magnitude.  The JAX package's float32 sum of five values near
+    2.5e5 lands 0.016 above their value for one value in eight, beyond the
+    1e-2 tolerance, so such a slot never becomes splittable there (ROADMAP
+    R7); on windows away from that rounding the two gates agree."""
+    const = np.full((1, 5), 257229.6875, np.float32)
+    j_excess = (jnp.sum(jnp.asarray(const), axis=-1) / 5.0
+                - jnp.asarray(const)[:, -1])
+    assert float(j_excess[0]) > 1e-2          # the JAX package's gate fails
+    assert TM.converged(torch.from_numpy(const)).tolist() == [True]
+    rng = np.random.default_rng(3)
+    windows = np.concatenate([
+        np.cumsum(rng.normal(0, 1, (64, 5)), axis=1) - 300.0,
+        np.full((1, 5), -np.inf), np.linspace(-3, -2, 5)[None]],
+        axis=0).astype(np.float32)
+    want = (np.isfinite(windows.sum(-1))
+            & (windows.sum(-1) / 5 - windows[:, -1] < 1e-2))
+    np.testing.assert_array_equal(
+        TM.converged(torch.from_numpy(windows)).numpy(), want)
+
+
+def test_smart_eigvec_of_symmetric_points():
+    """Points placed symmetrically make the uniform start vector an exact
+    eigenvector: three corners of a square (minor axis the diagonal) and
+    two opposite corners (covariance [[1, -1], [-1, 1]]).  The port finds
+    the principal axis of both; the JAX package leaves the first only by
+    its rounding and stays on the second's null axis (ROADMAP R6)."""
+    three = np.array([[8 / 9, -4 / 9], [-4 / 9, 8 / 9]], np.float32)
+    two = np.array([[1.0, -1.0], [-1.0, 1.0]], np.float32)
+    cov = np.stack([three, two])
+    got = TS.top_eigvec(torch.from_numpy(cov)).numpy()
+    np.testing.assert_allclose(np.abs(got), 2 ** -0.5, rtol=1e-6)
+    assert np.all(got[:, 0] * got[:, 1] < 0)          # along (1, -1)
+    j = np.asarray(JS.top_eigvec(jnp.asarray(cov)))
+    assert j[1, 0] * j[1, 1] > 0                      # JAX: along (1, 1)
