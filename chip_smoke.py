@@ -40,6 +40,12 @@ through every path of the port, at the config's default ll_precision
   bit-exact continuation without smart splits, and the CLI's fit and
   ``--resume`` in subprocesses; then ``cluster_statistics`` over the 10M x
   64-d fit's points;
+* the distributed phase (``fit_distributed``, :func:`run_distributed`):
+  one NCCL rank in this process equal to the flagship's ``fit`` bit for
+  bit, two gloo ranks sharing the card on the flagship (K=64, equal
+  tables, kernels A and B launched on each, the sums over ranks timed),
+  the integer 4 corners at 2^20 points equal on one process and on two
+  ranks, and the CLI's ``--distributed`` fit, resume and re-shard resume;
 
 and profiles 8 steady sweeps of the flagship fit (f32 cache, under
 "default" and "highest") and of each 10M x 64-d fit with torch.profiler.
@@ -1636,8 +1642,282 @@ def huge_statistics(torch, res, x, smi: str) -> None:
         f"({smi})")
 
 
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(argvs, timeout: float) -> list:
+    """Run ``python3 <argv>`` once per argument list, side by side, from
+    the repo's root; returns ``(rc, stdout, stderr)`` of each.  Every
+    process is killed if any outlives ``timeout`` seconds, and on any
+    error."""
+    import subprocess
+
+    root = pathlib.Path(__file__).resolve().parent
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=root, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for argv in argvs]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+
+
+def dist_rank_main(spec_path: str, rank: int) -> int:
+    """One gloo rank of the distributed phase on the card (``python3
+    chip_smoke.py --dist-rank SPEC RANK``): ``fit_distributed`` of its
+    contiguous rows of the spec's ``.npy`` points, with kernel A's and B's
+    launches counted from 0 and every sum over ranks of a card's tensor
+    timed by the host clock between two synchronizations; writes its
+    labels and a JSON of its K, NMI, ``history.k``, ms/sweep, launches,
+    the sums' count, seconds and bytes, and every rank's table digest."""
+    import torch
+    import torch.distributed as tdist
+
+    import dpmmsubclusters_tpu_torch as dpmm
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+    from dpmmsubclusters_tpu_torch.parallel import distributed as dist
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    counts = spec["counts"]
+    dist.initialize(spec["init"], len(counts), rank, "gloo")
+    try:
+        lo, hi = sum(counts[:rank]), sum(counts[:rank + 1])
+        x = np.ascontiguousarray(np.load(spec["x"], mmap_mode="r")[lo:hi])
+        sums = []
+        reduce = dist.all_reduce_sum
+
+        def timed(t):
+            if not t.is_cuda:               # the host moments at set-up
+                return reduce(t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = reduce(t)
+            torch.cuda.synchronize()
+            sums.append((time.perf_counter() - t0,
+                         t.numel() * t.element_size()))
+            return out
+
+        dist.all_reduce_sum = timed
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        res = dpmm.fit_distributed(x, device="cuda", **spec["kwargs"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {fn.__name__: sum(fn.launches.values())
+                    for fn in (sk.fused_assign, sk.stats_from_labels)}
+        digests = [None] * len(counts)
+        tdist.all_gather_object(digests, dist.table_digest(res.model.table))
+        out = dict(rank=rank, rows=len(x), k=res.k, hist_k=res.history.k,
+                   secs=secs, launches=launches, digests=digests,
+                   ms_sweep=float(np.median(res.history.times[-40:])) * 1e3,
+                   sweeps=len(res.history.k), sums=len(sums),
+                   sum_s=sum(t for t, _ in sums),
+                   sum_bytes=sum(b for _, b in sums))
+        if spec.get("gt"):
+            gt = np.load(spec["gt"], mmap_mode="r")[lo:hi]
+            out["nmi"] = dpmm.nmi(gt, res.labels)
+        np.save(f"{spec['out']}.rank{rank}.npy", res.model.labels_raw)
+        with open(f"{spec['out']}.rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.shutdown()
+    return 0
+
+
+def run_ranks(tmp: str, name: str, x, counts, kwargs: dict, gt=None,
+              timeout: float = 600) -> list:
+    """``fit_distributed`` of ``x`` split by ``counts`` over gloo ranks in
+    subprocesses sharing the card (:func:`dist_rank_main`); fails unless
+    every rank exits 0.  Returns each rank's JSON, with its labels under
+    ``labels_raw``."""
+    np.save(f"{tmp}/{name}_x.npy", x)
+    spec = dict(init=f"tcp://localhost:{free_port()}", x=f"{tmp}/{name}_x.npy",
+                counts=[int(c) for c in counts], out=f"{tmp}/{name}",
+                kwargs=kwargs)
+    if gt is not None:
+        np.save(f"{tmp}/{name}_gt.npy", gt)
+        spec["gt"] = f"{tmp}/{name}_gt.npy"
+    with open(f"{tmp}/{name}_spec.json", "w") as f:
+        json.dump(spec, f)
+    procs = spawn_ranks([[__file__, "--dist-rank", f"{tmp}/{name}_spec.json",
+                          str(i)] for i in range(len(counts))], timeout)
+    outs = []
+    for i, (rc, out, err) in enumerate(procs):
+        if rc != 0:
+            log(f"rank {i} of {name}: rc {rc}\n{out[-2000:]}\n{err[-4000:]}")
+            raise AssertionError(f"{name}: rank {i} exited {rc}")
+        with open(f"{tmp}/{name}.rank{i}.json") as f:
+            outs.append(json.load(f))
+        outs[-1]["labels_raw"] = np.load(f"{tmp}/{name}.rank{i}.npy")
+    return outs
+
+
+def run_distributed(torch, ref: dict, smi: str) -> dict:
+    """The distributed phase (``fit_distributed``, :mod:`dpmmsubclusters_
+    tpu_torch.parallel.distributed`) on the one card:
+
+    (a) one rank under NCCL in this process (a world of one) at the
+        flagship's data, config and seed: labels, sub-labels, table and
+        ``history.k`` equal to ``ref``, the flagship's ``fit`` (f32 cache)
+        of this run, bit for bit; kernels A and B launched; one NCCL
+        all_reduce of the flagship's [K_MAX, 2, F] sums timed;
+    (b) two gloo ranks in subprocesses on the flagship (rank 0 a whole
+        number of 512-row tiles, the shards unequal): K=64 and NMI >=
+        0.999 on each rank's rows, equal table digests, kernels A and B
+        launched on each rank; per-rank ms/sweep and the sums over ranks'
+        ms and bytes a sweep;
+    (c) the integer 4 corners at 2^20 points, under ``"default"`` and
+        ``"highest"``: one process's ``fit`` and two ranks give the same
+        labels and ``history.k``;
+    (d) the CLI, ``--distributed --backend gloo``, on the 4 corners of the
+        golden gate: a saving fit to sweep 40 on two ranks, ``--resume``
+        to 80 on two ranks, then a re-shard ``--resume`` to 120 on one,
+        each printing ``K = 4`` on every rank."""
+    import dpmmsubclusters_tpu_torch as dpmm
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+    from dpmmsubclusters_tpu_torch.parallel import distributed as dist
+
+    t_phase = time.perf_counter()
+    out = {}
+    x, gt = separated_data(N_FLAG, D_FLAG, K_TRUE_FLAG)
+    kw = dict(ref["kwargs"], precompute_features=True,
+              feature_dtype="float32")
+    want = ref["res"]
+
+    # (a) a world of one under NCCL
+    dist.initialize(f"tcp://localhost:{free_port()}", 1, 0, "nccl")
+    try:
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        res = dpmm.fit_distributed(x, device="cuda", **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {fn.__name__: dict(fn.launches)
+                    for fn in (sk.fused_assign, sk.stats_from_labels)}
+        assert launches["fused_assign"]["precomputed"] > 0, launches
+        assert launches["stats_from_labels"]["precomputed"] > 0, launches
+        assert np.array_equal(res.model.labels_raw, want.model.labels_raw)
+        assert np.array_equal(res.model.sublabels, want.model.sublabels)
+        assert dist.table_digest(res.model.table) == dist.table_digest(
+            want.model.table), "world of one: tables differ from fit's"
+        assert res.history.k == want.history.k
+        f = 1 + D_FLAG + D_FLAG * (D_FLAG + 1) // 2
+        sums = torch.ones((K_MAX_FLAG, 2, f), device="cuda")
+        nccl_ms = time_ms(torch, lambda: torch.distributed.all_reduce(sums),
+                          reps=50)
+    finally:
+        dist.shutdown()
+    ms_a = float(np.median(res.history.times[-40:])) * 1e3
+    out["a"] = dict(ms=ms_a, fit_ms=ref["ms"], nccl_ms=nccl_ms,
+                    bytes=sums.numel() * 4)
+    log(f"distributed (a) one NCCL rank, flagship: K={res.k} NMI="
+        f"{dpmm.nmi(gt, res.labels):.6f} in {secs:.1f} s, {ms_a:.2f} "
+        f"ms/sweep against fit's {ref['ms']:.2f}; labels, sub-labels, "
+        f"table and history.k equal to fit's bit for bit; launches "
+        f"{launches}; one NCCL all_reduce of the [{K_MAX_FLAG}, 2, {f}] "
+        f"f32 sums ({sums.numel() * 4} bytes) {nccl_ms:.4f} ms ({smi})")
+    del res, sums
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) two gloo ranks on the flagship, unequal, rank 0 whole tiles
+        counts = (HASH_TILE * 900, N_FLAG - HASH_TILE * 900)
+        t0 = time.perf_counter()
+        ranks = run_ranks(tmp, "flagship", x, counts, kw, gt=gt)
+        secs = time.perf_counter() - t0
+        for r in ranks:
+            assert r["k"] == K_TRUE_FLAG and r["nmi"] >= 0.999, r
+            assert len(set(r["digests"])) == 1, r["digests"]
+            assert min(r["launches"].values()) > 0, r["launches"]
+            log(f"distributed (b) gloo rank {r['rank']} of 2 on the card, "
+                f"{r['rows']} rows: K={r['k']} NMI={r['nmi']:.6f} in "
+                f"{r['secs']:.1f} s, {r['ms_sweep']:.2f} ms/sweep; "
+                f"launches {r['launches']}; {r['sums']} sums over ranks, "
+                f"{r['sum_s'] / r['sweeps'] * 1e3:.3f} ms and "
+                f"{r['sum_bytes'] / r['sweeps'] / 1e3:.1f} KB a sweep "
+                f"(staged through host memory) ({smi})")
+        out["b"] = [{k: r[k] for k in ("rows", "ms_sweep", "sums", "sum_s",
+                                        "sum_bytes", "sweeps")}
+                    for r in ranks]
+        log(f"distributed (b): table digests equal on both ranks; "
+            f"{secs:.1f} s with the processes' start ({smi})")
+        del x, gt
+
+        # (c) rank-count invariance: integer 4 corners at 2^20 points
+        n = 1 << 20
+        xc = np.zeros((n, 2), np.float32)
+        for i, c in enumerate([[10, 10], [-10, 10], [10, -10], [-10, -10]]):
+            xc[i * (n // 4):(i + 1) * (n // 4)] = c
+        corners = dict(alpha=100.0, iters=100, seed=SEED, burnout=5,
+                       verbose=False)
+        counts = (HASH_TILE * 700, n - HASH_TILE * 700)
+        # under "default" the chain stays at K=1 (ROADMAP Queue 3, P8: one
+        # bf16 pass loses duplicate-point sub-clusters); "highest" splits
+        for prec in ("default", "highest"):
+            kw_c = dict(corners, ll_precision=prec)
+            one = dpmm.fit(xc, device="cuda", **kw_c)
+            ranks = run_ranks(tmp, f"corners_{prec}", xc, counts, kw_c)
+            labels = np.concatenate([r["labels_raw"] for r in ranks])
+            assert np.array_equal(labels, one.model.labels_raw), (
+                "(c) labels", prec)
+            for r in ranks:
+                assert r["hist_k"] == one.history.k, ("(c) history.k", prec)
+            log(f"distributed (c) 4 corners at 2^20 points, ll_precision="
+                f"{prec}: one process's fit (K={one.k}, history.k "
+                f"{one.history.k[::10]} every 10 sweeps) and two gloo ranks "
+                f"({counts[0]} + {counts[1]} rows) give the same labels "
+                f"and history.k ({smi})")
+        del one, xc
+
+        # (d) the CLI on the golden gate's 4 corners
+        xg = np.zeros((1000, 2), np.float32)
+        for i, c in enumerate([[10, 10], [-10, 10], [10, -10], [-10, -10]]):
+            xg[i * 250:(i + 1) * 250] = c
+        np.save(f"{tmp}/golden.npy", xg)
+        with open(f"{tmp}/params.json", "w") as f:
+            json.dump(dict(corners, data_path=f"{tmp}/golden.npy", iters=40,
+                           enable_saving=True, model_save_interval=40,
+                           save_path=f"{tmp}/", save_file_prefix="cli_"), f)
+        for ranks, extra in ((2, []),
+                             (2, ["--resume", f"{tmp}/cli_40.npz",
+                                  "--iters", "80"]),
+                             (1, ["--resume", f"{tmp}/cli_80.npz",
+                                  "--iters", "120"])):
+            port = free_port()
+            t0 = time.perf_counter()
+            procs = spawn_ranks([
+                ["-m", "dpmmsubclusters_tpu_torch.run", "--distributed",
+                 "--coordinator", f"localhost:{port}", "--num-processes",
+                 str(ranks), "--process-id", str(i), "--backend", "gloo",
+                 *extra, f"{tmp}/params.json"] for i in range(ranks)], 300)
+            what = " ".join(extra) or "fit"
+            for i, (rc, so, se) in enumerate(procs):
+                lines = so.strip().splitlines()
+                if rc != 0 or "K = 4" not in lines:
+                    log(f"CLI {what} rank {i}: rc {rc}\n{so[-2000:]}\n"
+                        f"{se[-4000:]}")
+                    raise AssertionError(f"(d) CLI {what}: rank {i}")
+            log(f"distributed (d) CLI --distributed --backend gloo, {ranks} "
+                f"rank(s), {what}: K = 4 on every rank in "
+                f"{time.perf_counter() - t0:.1f} s ({smi})")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"distributed phase done in {out['seconds']:.1f} s ({smi})")
+    free(torch)
+    return out
+
+
 # the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
-CARD_TESTS = 95
+CARD_TESTS = 99
 
 
 def run_card_tests(smi: str) -> int:
@@ -1801,6 +2081,7 @@ def main() -> int:
             continue
         if variant == "precomputed" and prec == "default":
             launches["precomputed"] = r["launches"]
+            flag_ref = dict(r, kwargs=flag)      # for the distributed phase
         assert r["res"].k == K_TRUE_FLAG and r["nmi"] >= 0.999, (
             what, r["res"].k, r["nmi"])
     log("flagship ms/sweep: " + ", ".join(
@@ -1854,6 +2135,8 @@ def main() -> int:
     profile_sweeps(torch, r["res"], x, "10M x 64-d (hybrid cache)", smi)
     del x, gt, r
     free(torch)
+    run_distributed(torch, flag_ref, smi)
+    del flag_ref
 
     report = {"kernels": []}
     for name, variants in (("fused_assign", ("precomputed", "gaussian",
@@ -1942,6 +2225,8 @@ MODES = {"--kernel-a": kernel_a_main, "--kernel-b": kernel_b_main,
 
 if __name__ == "__main__":
     argv = sys.argv[1:]
+    if len(argv) == 3 and argv[0] == "--dist-rank":    # run_ranks' ranks
+        sys.exit(dist_rank_main(argv[1], int(argv[2])))
     if len(argv) > 1 or (argv and argv[0] not in MODES):
         sys.exit(f"usage: python3 chip_smoke.py [{' | '.join(MODES)}]")
     sys.exit(MODES[argv[0]]() if argv else main())

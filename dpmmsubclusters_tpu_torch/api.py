@@ -6,9 +6,11 @@ multinomial families on one device: the same ``fit`` and
 and standardization of Gaussian data with the prior mapped along, and the
 same ``DPMMModel`` (``labels``, ``k``, ``weights``, ``counts``,
 ``cluster_params``, ``predict``, ``log_posterior``, ``cluster_statistics``,
-``save``), whose checkpoints each package loads.  The entry points run on
-``device="cuda"`` by default and raise when no card is present; pass
-``device="cpu"`` for the plain PyTorch path.
+``save``), whose checkpoints each package loads.  ``fit_distributed`` and
+``run_from_checkpoint_distributed`` are the multi-process fit and its
+resume (:mod:`.parallel.distributed`): each process passes its own rows.
+The entry points run on ``device="cuda"`` by default and raise when no
+card is present; pass ``device="cpu"`` for the plain PyTorch path.
 """
 from __future__ import annotations
 
@@ -20,8 +22,11 @@ import torch
 
 from .config import DPMMConfig
 from .interop import table_from_jax
-from .io.checkpoint import (jax_key, load_checkpoint, restore_generator,
-                            save_checkpoint, seed_from_key)
+from .io.checkpoint import (jax_key, load_checkpoint,
+                            load_checkpoint_distributed, restore_generator,
+                            save_checkpoint, save_checkpoint_distributed,
+                            seed_from_key)
+from .parallel.distributed import RowLayout, row_layout
 from .priors import GAUSSIAN, MULTINOMIAL
 from .sampler.driver import (DPMMEngine, DPMMState, IterStats, desired_tier,
                              migrate, run_loop, tier_sequence)
@@ -113,6 +118,16 @@ def _resolve_family(family, prior):
     if isinstance(family, str):
         return _FAMILIES[family]
     return family
+
+
+def _check_n_devices(n_devices) -> None:
+    """One process drives one card: the JAX package's single-process
+    ``n_devices`` / mesh data parallelism has no counterpart here."""
+    if n_devices not in (None, 1):
+        raise ValueError(
+            f"n_devices={n_devices}: one process drives one card; to fit "
+            f"across cards run fit_distributed in one process per card "
+            f"(torchrun --nproc-per-node=N)")
 
 
 def _resolve_device(device) -> torch.device:
@@ -267,17 +282,19 @@ class DPMMModel:
         # density change of variables back to the data space
         return s_ll / cnt + float(np.log(self._scale).sum()), s_resp / cnt
 
+    def _file_fields(self) -> dict:
+        """What a checkpoint of this model holds, both formats alike."""
+        return dict(table=self.table, labels=self.labels_raw,
+                    sublabels=self.sublabels,
+                    key=jax_key(self.seed, self.step), step=self.step,
+                    shift=self.shift, cfg=self.cfg,
+                    family_name=self.family.name, scale=self.scale,
+                    gen_state=self.gen_state, gen_device=self.gen_device)
+
     def save(self, path: str):
         """Write a checkpoint (:mod:`.io.checkpoint`) that either package
         resumes."""
-        save_checkpoint(
-            path, table=self.table, labels=self.labels_raw,
-            sublabels=self.sublabels, key=jax_key(self.seed, self.step),
-            step=self.step, shift=self.shift, cfg=self.cfg,
-            family_name=self.family.name, n_points=self.n_points,
-            scale=self.scale, gen_state=self.gen_state,
-            gen_device=self.gen_device,
-        )
+        save_checkpoint(path, n_points=self.n_points, **self._file_fields())
 
 
 @dataclasses.dataclass
@@ -312,6 +329,37 @@ def _prepare_data(data, transposed: bool) -> np.ndarray:
     return np.ascontiguousarray(x)
 
 
+def _standardize(fam, cfg: DPMMConfig, x: np.ndarray, prior, outlier_prior,
+                 layout: RowLayout):
+    """Centering and per-dim standardization of Gaussian data, with the
+    prior mapped along: ``(x, prior, outlier_prior, shift, scale)``.  Both
+    are exact model transforms, and results are mapped back; centering
+    keeps the f32 sum_xx accurate, standardization keeps the posterior
+    scatter well-conditioned (DPMMConfig.standardize_data).  The moments
+    are the global ones of every rank's rows (``layout.moments``).  Counts
+    are left as they are."""
+    d = x.shape[1]
+    shift = np.zeros(d, np.float32)
+    scale = np.ones(d, np.float32)
+    if fam.name != "gaussian" or not (cfg.center_data
+                                      or cfg.standardize_data):
+        return x, prior, outlier_prior, shift, scale
+    mean, sd = layout.moments(x)
+    if cfg.center_data:
+        shift = mean
+        x = x - shift
+        prior = fam.shift_prior(prior, -shift)
+        if outlier_prior is not None:
+            outlier_prior = fam.shift_prior(outlier_prior, -shift)
+    if cfg.standardize_data:
+        scale = np.where(sd > 1e-12, 1.0 / sd, 1.0).astype(np.float32)
+        x = x * scale
+        prior = fam.scale_prior(prior, scale)
+        if outlier_prior is not None:
+            outlier_prior = fam.scale_prior(outlier_prior, scale)
+    return x, prior, outlier_prior, shift, scale
+
+
 def fit(
     data,
     alpha: float = 10.0,
@@ -322,6 +370,7 @@ def fit(
     device="cuda",
     outlier_prior: Optional[dict] = None,
     transposed: bool = False,
+    n_devices: Optional[int] = None,
     config: Optional[DPMMConfig] = None,
     **overrides,
 ) -> FitResult:
@@ -332,9 +381,54 @@ def fit(
     ``alpha``); ``prior=None`` uses the family's weak default, for the
     Gaussian NIW(1, 0, D+3, I) stated in data space.  Any
     :class:`DPMMConfig` field can be passed as a keyword override.  Runs on
-    ``device`` ("cuda" by default).
+    ``device`` ("cuda" by default); ``n_devices`` may only be None or 1
+    (:func:`fit_distributed` fits across cards).
     """
-    x = _prepare_data(data, transposed)
+    _check_n_devices(n_devices)
+    return _fit(_prepare_data(data, transposed), alpha, prior, family,
+                device, outlier_prior, config, overrides, gt=gt)
+
+
+def fit_distributed(
+    x_local,
+    alpha: float = 10.0,
+    prior: Optional[dict] = None,
+    *,
+    family=None,
+    device="cuda",
+    outlier_prior: Optional[dict] = None,
+    config: Optional[DPMMConfig] = None,
+    **overrides,
+) -> FitResult:
+    """Multi-process ``fit``: every process passes only ITS rows [N_local,
+    D] and drives one card (``device``; under
+    :func:`.parallel.distributed.initialize`, the rank's own).
+
+    Counterpart of the JAX package's ``fit_distributed`` and of the
+    reference's multi-machine mode (``addprocs`` +
+    ``DistributedArrays.distribute``, ``docs/src/perf.md:3``,
+    ``src/dp-parallel-sampling.jl:42``).  Call ``initialize()`` first on
+    every process (without it this is a world of one, and the result is
+    ``fit``'s bit for bit).  The global row order is the ranks' rows in rank
+    order; centering and standardization use the moments of every rank's
+    rows; a ``seed`` of None takes rank 0's draw.  The table, its
+    parameters and the history are the same on every rank; the returned
+    model's ``labels`` cover this rank's rows only, and its ``n_points``
+    counts every rank's.  Labels across rank counts are bit-identical where
+    the float32 statistics sums are exact (:mod:`.parallel.distributed`).
+    With ``enable_saving`` every rank writes its label shard and rank 0 the
+    master file (:func:`.io.checkpoint.save_checkpoint_distributed`).
+    """
+    x = _prepare_data(x_local, False)
+    return _fit(x, alpha, prior, family, device, outlier_prior, config,
+                overrides, layout=row_layout(x.shape[0]))
+
+
+def _fit(x: np.ndarray, alpha, prior, family, device, outlier_prior,
+         config, overrides: dict, *, gt=None,
+         layout: Optional[RowLayout] = None) -> FitResult:
+    """``fit`` (``layout`` None) and ``fit_distributed`` (this rank's
+    layout) on this process's rows ``x``."""
     n, d = x.shape
     cfg = config if config is not None else DPMMConfig()
     if alpha is not None:
@@ -349,34 +443,17 @@ def fit(
     if outlier_prior is not None:
         outlier_prior = _validate_prior(fam, outlier_prior, d,
                                         name="outlier_prior")
+    lay = RowLayout() if layout is None else layout
+    x, prior, outlier_prior, shift, scale = _standardize(
+        fam, cfg, x, prior, outlier_prior, lay)
 
-    # Gaussian data only: centering keeps the f32 sum_xx accurate; per-dim
-    # standardization keeps the posterior scatter well-conditioned
-    # (DPMMConfig.standardize_data).  Both are exact model transforms: the
-    # prior, stated in data space, is mapped along and results are mapped
-    # back.  Counts are left as they are.
-    shift = np.zeros(d, np.float32)
-    scale = np.ones(d, np.float32)
-    if fam.name == "gaussian" and cfg.center_data:
-        shift = x.mean(axis=0)
-        x = x - shift
-        prior = fam.shift_prior(prior, -shift)
-        if outlier_prior is not None:
-            outlier_prior = fam.shift_prior(outlier_prior, -shift)
-    if fam.name == "gaussian" and cfg.standardize_data:
-        sd = x.std(axis=0)
-        scale = np.where(sd > 1e-12, 1.0 / sd, 1.0).astype(np.float32)
-        x = x * scale
-        prior = fam.scale_prior(prior, scale)
-        if outlier_prior is not None:
-            outlier_prior = fam.scale_prior(outlier_prior, scale)
-
-    cfg = _resolve_precompute(fam, cfg, n, d)
+    # the cache is per rank: the largest rank's rows decide, alike on all
+    cfg = _resolve_precompute(fam, cfg, max(lay.counts, default=n), d)
     k_start, tiers = _tier_setup(cfg)
-    engine = DPMMEngine(fam, cfg.replace(k_max=int(k_start)), dev)
+    engine = DPMMEngine(fam, cfg.replace(k_max=int(k_start)), dev, lay)
     points, valid, n_total = engine.shard_points(x)
-    seed = (cfg.seed if cfg.seed is not None
-            else int(np.random.randint(0, 2**31 - 1)))
+    seed = lay.first(cfg.seed if cfg.seed is not None
+                     else int(np.random.randint(0, 2**31 - 1)))
     if cfg.precompute_features:
         points = engine.featurize(points, seed=seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -384,18 +461,23 @@ def fit(
     state, hist = run_loop(
         engine, state, points, valid, n_total, cfg.iters,
         gt=np.asarray(gt) if gt is not None else None, n_valid=n,
-        callback=_save_callback(fam, cfg, shift, n, scale, seed),
-        tiers=tiers,
+        callback=_save_callback(fam, cfg, shift, n, scale, seed, layout),
+        verbose=None if layout is None else False, tiers=tiers,
     )
-    model = _model_from_state(fam, cfg, state, shift, n, scale, seed)
+    model = _model_from_state(fam, cfg, state, shift, n, scale, seed,
+                              int(n_total))
     return FitResult(model=model, history=hist)
 
 
 def _model_from_state(fam, cfg: DPMMConfig, state: DPMMState, shift, n: int,
-                      scale, seed: int) -> DPMMModel:
+                      scale, seed: int,
+                      n_points: Optional[int] = None) -> DPMMModel:
+    """The model of ``state``: this process's ``n`` rows' labels, and
+    ``n_points`` (all ranks' rows; ``n`` by default)."""
     return DPMMModel(
         family=fam, table=state.table, shift=np.asarray(shift, np.float32),
-        cfg=cfg, n_points=n, labels_raw=state.labels.cpu().numpy()[:n],
+        cfg=cfg, n_points=n if n_points is None else n_points,
+        labels_raw=state.labels.cpu().numpy()[:n],
         sublabels=state.sublabels.cpu().numpy()[:n], step=state.step,
         scale=None if scale is None else np.asarray(scale, np.float32),
         seed=int(seed), gen_state=state.gen.get_state().numpy(),
@@ -403,18 +485,28 @@ def _model_from_state(fam, cfg: DPMMConfig, state: DPMMState, shift, n: int,
     )
 
 
-def _save_callback(fam, cfg: DPMMConfig, shift, n: int, scale, seed: int):
+def _save_callback(fam, cfg: DPMMConfig, shift, n: int, scale, seed: int,
+                   layout: Optional[RowLayout] = None):
     """With ``cfg.enable_saving``, the ``run_loop`` callback that writes
     ``{save_path}{save_file_prefix}{it + 1}.npz`` every
     ``model_save_interval`` sweeps (reference run_model,
-    src/dp-parallel-sampling.jl:396-401); else None."""
+    src/dp-parallel-sampling.jl:396-401); else None.  With a ``layout``
+    (``fit_distributed``) every rank writes its shard of ``n`` rows and
+    rank 0 the master file."""
     if not cfg.enable_saving:
         return None
 
     def callback(it, st, _metrics):
-        if (it + 1) % cfg.model_save_interval == 0:
-            _model_from_state(fam, cfg, st, shift, n, scale, seed).save(
-                f"{cfg.save_path}{cfg.save_file_prefix}{it + 1}.npz")
+        if (it + 1) % cfg.model_save_interval:
+            return
+        path = f"{cfg.save_path}{cfg.save_file_prefix}{it + 1}.npz"
+        if layout is None:
+            _model_from_state(fam, cfg, st, shift, n, scale, seed).save(path)
+            return
+        model = _model_from_state(fam, cfg, st, shift, n, scale, seed,
+                                  layout.n_global)
+        save_checkpoint_distributed(path, n_points_global=layout.n_global,
+                                    n_local=n, **model._file_fields())
 
     return callback
 
@@ -447,6 +539,7 @@ def run_from_checkpoint(
     gt=None,
     device="cuda",
     transposed: bool = False,
+    n_devices: Optional[int] = None,
     **overrides,
 ) -> FitResult:
     """Resume a run from a checkpoint of either package (reference
@@ -456,32 +549,80 @@ def run_from_checkpoint(
     The engine starts at the saved table's width (a fixed ``k_max`` migrates
     it there) and continues from sweep ``step`` with the saved generator
     state (:func:`.io.checkpoint.restore_generator`).  Raises
-    ``ValueError`` for data of the wrong size, and when the capacity or
-    ``max_clusters`` asked for lies below the checkpoint's live clusters."""
+    ``ValueError`` for data of the wrong size, for the master file of a
+    distributed run (:func:`run_from_checkpoint_distributed` resumes it),
+    and when the capacity or ``max_clusters`` asked for lies below the
+    checkpoint's live clusters.  ``n_devices`` may only be None or 1."""
+    _check_n_devices(n_devices)
     ck = load_checkpoint(path)
+    x = _prepare_data(data, transposed)
+    if x.shape[0] != ck["n_points"]:
+        raise ValueError(
+            f"checkpoint was trained on {ck['n_points']} points, got "
+            f"{x.shape[0]}")
+    if len(ck["labels"]) != ck["n_points"]:
+        raise ValueError(
+            f"{path} is the master file of a distributed run (labels of "
+            f"{len(ck['labels'])} of its {ck['n_points']} points); resume "
+            f"it with run_from_checkpoint_distributed")
+    return _resume(ck, ck["labels"], ck["sublabels"], x, iters, device,
+                   overrides, gt=gt)
+
+
+def run_from_checkpoint_distributed(
+    path: str,
+    x_local,
+    *,
+    iters: Optional[int] = None,
+    device="cuda",
+    **overrides,
+) -> FitResult:
+    """Resume a :func:`fit_distributed` run (or any checkpoint of either
+    package's ``fit_distributed``).  Every process passes its own rows; the
+    global row order (the ranks' rows in rank order) must be the original
+    run's, but the rank count and the split may differ: the label stream
+    is then re-sharded onto the new ranks
+    (:func:`.io.checkpoint.load_checkpoint_distributed`; the reference
+    refuses this, its ``run_model_from_checkpoint`` re-distributes over the
+    same workers, src/dp-parallel-sampling.jl:428-447).  The table, the
+    random state and the step come from the master file, replicated."""
+    x = _prepare_data(x_local, False)
+    layout = row_layout(x.shape[0])
+    ck, shard = load_checkpoint_distributed(path, n_local=x.shape[0])
+    if layout.n_global != ck["n_points"]:
+        raise ValueError(
+            f"checkpoint was trained on {ck['n_points']} points, the ranks "
+            f"hold {layout.n_global}")
+    return _resume(ck, shard["labels"], shard["sublabels"], x, iters,
+                   device, overrides, layout=layout)
+
+
+def _resume(ck: dict, labels, sublabels, x: np.ndarray, iters, device,
+            overrides: dict, *, gt=None,
+            layout: Optional[RowLayout] = None) -> FitResult:
+    """The resume of ``run_from_checkpoint`` (``layout`` None) and of
+    ``run_from_checkpoint_distributed``: ``ck``'s table, random state and
+    step with this process's ``labels`` / ``sublabels`` of its rows
+    ``x``."""
     cfg: DPMMConfig = ck["config"]
     if iters is not None:
         overrides["iters"] = iters
     if overrides:
         cfg = cfg.replace(**overrides)
     fam = _FAMILIES[ck["family"]]
-
-    x = _prepare_data(data, transposed)
     n, d = x.shape
-    if n != ck["n_points"]:
-        raise ValueError(
-            f"checkpoint was trained on {ck['n_points']} points, got {n}")
     dev = _resolve_device(device)
     shift = np.asarray(ck["shift"], np.float32)
     scale = (np.ones(d, np.float32) if ck["scale"] is None
              else np.asarray(ck["scale"], np.float32))
     x = (x - shift) * scale
 
-    cfg = _resolve_precompute(fam, cfg, n, d)
+    lay = RowLayout() if layout is None else layout
+    cfg = _resolve_precompute(fam, cfg, max(lay.counts, default=n), d)
     k_saved = int(ck["table"]["active"].shape[0])
     k_start, tiers = _tier_setup(cfg, k_start=k_saved)
     _check_capacity(cfg, tiers, ck["table"])
-    engine = DPMMEngine(fam, cfg.replace(k_max=int(k_start)), dev)
+    engine = DPMMEngine(fam, cfg.replace(k_max=int(k_start)), dev, lay)
     points, valid, n_total = engine.shard_points(x)
     if cfg.precompute_features:
         # the bf16 dither: the original fit's when it was seeded
@@ -489,11 +630,14 @@ def run_from_checkpoint(
             points, seed=cfg.seed if cfg.seed is not None else 0)
 
     def stream(a):
-        return torch.as_tensor(np.asarray(a, np.int32).reshape(-1)).to(dev)
+        """This rank's label stream, padded to its rows (pad rows are
+        invalid)."""
+        out = torch.zeros(valid.shape[0], dtype=torch.int32)
+        out[:n] = torch.as_tensor(np.asarray(a, np.int32).reshape(-1))
+        return out.to(dev)
 
     state = DPMMState(table=table_from_jax(ck["table"], dev),
-                      labels=stream(ck["labels"]),
-                      sublabels=stream(ck["sublabels"]),
+                      labels=stream(labels), sublabels=stream(sublabels),
                       gen=restore_generator(ck, dev), step=ck["step"])
     if tiers is None and k_saved != cfg.k_max:
         state = migrate(fam, state, cfg.k_max)
@@ -502,8 +646,9 @@ def run_from_checkpoint(
         engine, state, points, valid, n_total, cfg.iters,
         first_iter=ck["step"],
         gt=np.asarray(gt) if gt is not None else None, n_valid=n,
-        callback=_save_callback(fam, cfg, shift, n, scale, seed),
-        tiers=tiers,
+        callback=_save_callback(fam, cfg, shift, n, scale, seed, layout),
+        verbose=None if layout is None else False, tiers=tiers,
     )
-    model = _model_from_state(fam, cfg, state, shift, n, scale, seed)
+    model = _model_from_state(fam, cfg, state, shift, n, scale, seed,
+                              int(n_total))
     return FitResult(model=model, history=hist)

@@ -1,7 +1,9 @@
 """Checkpoint save/load in the JAX package's file format.
 
-PyTorch counterpart of :mod:`dpmmsubclusters_tpu.io.checkpoint` (single
-process; the ``_distributed`` pair comes with the port of ``parallel/``).
+PyTorch counterpart of :mod:`dpmmsubclusters_tpu.io.checkpoint`, with the
+multi-process pair (:func:`save_checkpoint_distributed`,
+:func:`load_checkpoint_distributed`) in the same layout: a master file and
+one label shard a rank.
 Like the reference's ``pts_less_group`` (src/dp-parallel-sampling.jl:
 396-401,450-455) a checkpoint holds the labels, sub-labels, the cluster
 table, the random state and the step, not the points: a resume supplies
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import warnings
 from typing import Optional
 
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ..config import DPMMConfig
+from ..parallel import distributed as dist
 
 _SEP = "//"
 _GEN = "torch_generator_"
@@ -125,6 +129,79 @@ def save_checkpoint(path: str, *, table, labels, sublabels, key, step: int,
     if gen_state is not None:
         payload[_GEN + gen_device] = np.asarray(gen_state, np.uint8)
     np.savez(path, **payload)
+
+
+def save_checkpoint_distributed(path: str, *, table, labels, sublabels,
+                                key, step: int, shift, cfg: DPMMConfig,
+                                family_name: str, n_points_global: int,
+                                n_local: int, scale=None,
+                                gen_state: Optional[np.ndarray] = None,
+                                gen_device: str = "cpu"):
+    """Multi-process checkpoint: EVERY rank calls this.
+
+    Rank 0 writes the master file ``path`` (:func:`save_checkpoint` of the
+    replicated table, key, step, config, shift, scale and generator state;
+    its label fields hold rank 0's shard) and every rank writes
+    ``path.shard<i>.npz`` with its ``labels``, ``sublabels``, ``n_local``,
+    ``process``, ``num_processes`` and ``step``: the JAX package's
+    layout, so each package resumes the other's files."""
+    me, n_local = dist.rank(), int(n_local)
+    lab = _as_numpy(labels).reshape(-1)[:n_local]
+    sub = _as_numpy(sublabels).reshape(-1)[:n_local]
+    np.savez(f"{path}.shard{me}.npz", labels=lab, sublabels=sub,
+             n_local=np.asarray(n_local), process=np.asarray(me),
+             num_processes=np.asarray(dist.world()), step=np.asarray(step))
+    if me == 0:
+        save_checkpoint(path, table=table, labels=lab, sublabels=sub,
+                        key=key, step=step, shift=shift, cfg=cfg,
+                        family_name=family_name, n_points=n_points_global,
+                        scale=scale, gen_state=gen_state,
+                        gen_device=gen_device)
+
+
+def load_checkpoint_distributed(path: str, n_local: Optional[int] = None):
+    """``(master, shard)``: the master file as :func:`load_checkpoint`
+    reads it, and this rank's ``{"labels", "sublabels", "n_local"}``.
+
+    On the grid that wrote the files, with this rank's row count unchanged
+    (or ``n_local`` None), this rank reads its own shard file.  Otherwise
+    it is a re-shard: the table is replicated and labels are per point, so
+    this rank's labels are its contiguous slice of the saved shards
+    concatenated in rank order, at offsets agreed by an all-gather of every
+    rank's ``n_local`` (this rank's row count, required then).  Every
+    rank must reach every shard file (a shared file system).  Raises
+    ``ValueError`` when the new row counts do not cover the saved
+    points."""
+    me, n_ranks = dist.rank(), dist.world()
+    master = load_checkpoint(path)
+    mine = f"{path}.shard{me}.npz"
+    with np.load(mine if os.path.exists(mine) else f"{path}.shard0.npz") as z:
+        saved_ranks = int(z["num_processes"])
+        if (os.path.exists(mine) and saved_ranks == n_ranks
+                and (n_local is None or int(z["n_local"]) == n_local)):
+            return master, {"labels": z["labels"],
+                            "sublabels": z["sublabels"],
+                            "n_local": int(z["n_local"])}
+    if n_local is None:
+        raise ValueError(
+            f"checkpoint was written by {saved_ranks} processes; to resume "
+            f"on {n_ranks} pass n_local (this rank's row count) so the "
+            f"label stream can be re-sharded")
+    labels, sublabels = [], []
+    for i in range(saved_ranks):
+        with np.load(f"{path}.shard{i}.npz") as z:
+            labels.append(z["labels"])
+            sublabels.append(z["sublabels"])
+    labels, sublabels = np.concatenate(labels), np.concatenate(sublabels)
+    counts = dist.all_gather_ints(n_local)
+    if sum(counts) != len(labels):
+        raise ValueError(
+            f"re-shard row counts {counts} (total {sum(counts)}) do not "
+            f"cover the checkpoint's {len(labels)} points")
+    start = sum(counts[:me])
+    rows = slice(start, start + int(n_local))
+    return master, {"labels": labels[rows], "sublabels": sublabels[rows],
+                    "n_local": int(n_local)}
 
 
 def load_checkpoint(path: str) -> dict:

@@ -26,7 +26,19 @@ Resume:   python -m dpmmsubclusters_tpu_torch.run --resume ckpt.npz params.json
           src/dp-parallel-sampling.jl:428-447)
 
 ``--device`` picks the device (default ``cuda``; ``cpu`` for the plain
-PyTorch path).  ``--distributed`` (multi-process mode) is not ported yet.
+PyTorch path).
+
+Multi-process: ``--distributed`` joins the process group
+(:func:`.parallel.distributed.initialize`: ``--coordinator HOST:PORT`` or a
+URL, ``--num-processes``, ``--process-id``, ``--backend nccl|gloo``; under
+``torchrun`` all from its environment) and runs ``fit_distributed``, or
+with ``--resume`` ``run_from_checkpoint_distributed``, once per process.
+Each process reads its own rows: ``data_path`` with ``{proc}`` names a file
+per rank, otherwise each rank takes its contiguous slice of the one file.
+``gt_path`` is ignored there (labels are per rank; NMI is offline).
+
+    torchrun --nproc-per-node=4 -m dpmmsubclusters_tpu_torch.run \
+        --distributed params.json
 """
 from __future__ import annotations
 
@@ -35,8 +47,10 @@ import json
 
 import numpy as np
 
-from .api import FitResult, fit, run_from_checkpoint
+from .api import (FitResult, fit, fit_distributed, run_from_checkpoint,
+                  run_from_checkpoint_distributed)
 from .io.npy import load_data
+from .parallel import distributed as dist
 
 
 def _validate_params(params: dict, path: str):
@@ -65,11 +79,16 @@ def _validate_params(params: dict, path: str):
         )
 
 
-def _load_params(path: str):
-    """(params without the data keys, data, gt or None) of a params file."""
+def _read_params(path: str) -> dict:
     with open(path) as f:
         params = json.load(f)
     _validate_params(params, path)
+    return params
+
+
+def _load_params(path: str):
+    """(params without the data keys, data, gt or None) of a params file."""
+    params = _read_params(path)
     data = load_data(
         params.pop("data_path"),
         swapdims=bool(params.pop("data_transposed", False)),
@@ -80,10 +99,9 @@ def _load_params(path: str):
     return params, data, gt
 
 
-def fit_from_params(path: str, *, device="cuda") -> FitResult:
-    """Load a JSON params file and run ``fit`` on ``device`` (reference
-    ``dp_parallel(model_params::String)``, src/dp-parallel-sampling.jl:317)."""
-    params, data, gt = _load_params(path)
+def _pop_model_args(params: dict) -> dict:
+    """``prior``, ``outlier_prior`` (as float32 arrays), ``family`` and
+    ``alpha`` taken out of ``params``."""
     prior = params.pop("prior", None)
     if prior is not None:
         prior = {k: np.asarray(v, np.float32) for k, v in prior.items()}
@@ -92,12 +110,17 @@ def fit_from_params(path: str, *, device="cuda") -> FitResult:
         outlier_prior = {
             k: np.asarray(v, np.float32) for k, v in outlier_prior.items()
         }
-    family = params.pop("family", None)
-    alpha = params.pop("alpha", 10.0)
-    return fit(
-        data, alpha=alpha, prior=prior, family=family, gt=gt, device=device,
-        outlier_prior=outlier_prior, **params,
-    )
+    return dict(prior=prior, outlier_prior=outlier_prior,
+                family=params.pop("family", None),
+                alpha=params.pop("alpha", 10.0))
+
+
+def fit_from_params(path: str, *, device="cuda") -> FitResult:
+    """Load a JSON params file and run ``fit`` on ``device`` (reference
+    ``dp_parallel(model_params::String)``, src/dp-parallel-sampling.jl:317)."""
+    params, data, gt = _load_params(path)
+    model = _pop_model_args(params)
+    return fit(data, gt=gt, device=device, **model, **params)
 
 
 def resume_from_params(ckpt: str, path: str, iters=None, *,
@@ -107,6 +130,38 @@ def resume_from_params(ckpt: str, path: str, iters=None, *,
     else comes from the checkpoint's config, ``iters`` aside."""
     _, data, gt = _load_params(path)
     return run_from_checkpoint(ckpt, data, iters=iters, gt=gt, device=device)
+
+
+def _load_local_rows(params: dict) -> np.ndarray:
+    """This rank's rows in distributed mode: the file a rank when
+    ``data_path`` holds ``{proc}``, else a contiguous slice of the one file
+    by rank (``params`` loses its data keys)."""
+    path = params.pop("data_path")
+    swap = bool(params.pop("data_transposed", False))
+    params.pop("gt_path", None)
+    if "{proc}" in path:
+        return load_data(path.format(proc=dist.rank()), swapdims=swap)
+    x = load_data(path, swapdims=swap)
+    n, p, i = len(x), dist.world(), dist.rank()
+    return x[(n * i) // p:(n * (i + 1)) // p]
+
+
+def fit_from_params_distributed(path: str, *, device="cuda") -> FitResult:
+    """Multi-process params-file mode: call after ``initialize()`` on every
+    rank; drives ``fit_distributed`` from the same JSON schema."""
+    params = _read_params(path)
+    x_local = _load_local_rows(params)
+    model = _pop_model_args(params)
+    return fit_distributed(x_local, device=device, **model, **params)
+
+
+def resume_from_params_distributed(ckpt: str, path: str, iters=None, *,
+                                   device="cuda") -> FitResult:
+    """Resume a distributed checkpoint on every rank; the params file
+    supplies the rows, on this rank count (a re-shard when it differs)."""
+    x_local = _load_local_rows(_read_params(path))
+    return run_from_checkpoint_distributed(ckpt, x_local, iters=iters,
+                                           device=device)
 
 
 def main(argv=None):
@@ -123,13 +178,29 @@ def main(argv=None):
                     help="torch device (default cuda; cpu for the plain "
                          "PyTorch path)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process mode (not ported yet)")
+                    help="multi-process mode: join the process group and "
+                         "run fit_distributed (launch once per process)")
+    ap.add_argument("--coordinator", default=None,
+                    help="rendezvous HOST:PORT or URL (torchrun: from env)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="default nccl with a card, gloo without; gloo "
+                         "lets several ranks share one card")
     args = ap.parse_args(argv)
     if args.distributed:
-        raise NotImplementedError(
-            "--distributed: multi-process fits are not ported yet "
-            "(ROADMAP.md, Queue 1 item E: parallel/ -> torch.distributed)")
-    if args.resume:
+        dist.initialize(args.coordinator, args.num_processes,
+                        args.process_id, args.backend)
+        try:
+            if args.resume:
+                result = resume_from_params_distributed(
+                    args.resume, args.params, args.iters, device=args.device)
+            else:
+                result = fit_from_params_distributed(args.params,
+                                                     device=args.device)
+        finally:
+            dist.shutdown()
+    elif args.resume:
         result = resume_from_params(args.resume, args.params, args.iters,
                                     device=args.device)
     else:

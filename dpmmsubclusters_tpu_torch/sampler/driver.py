@@ -1,7 +1,10 @@
-"""Host-side engine and training loop, single device.
+"""Host-side engine and training loop, one device a process.
 
 PyTorch counterpart of :mod:`dpmmsubclusters_tpu.sampler.driver` without a
-device mesh.  PyTorch runs eagerly, so a "fused block" is a Python loop of
+device mesh: across processes each rank runs this loop on its own rows,
+with the replicated table and one sum of the statistics over ranks per
+pass (the engine's :class:`~..parallel.distributed.RowLayout`).  PyTorch
+runs eagerly, so a "fused block" is a Python loop of
 ``fused_block`` sweeps followed by one smart sub-label pass; the loop then
 synchronizes once per block to read the cluster counts, stamp the block's
 time and pick the next table-capacity tier.
@@ -31,6 +34,7 @@ import torch
 
 from ..config import DPMMConfig
 from ..ops import sweep_kernels
+from ..parallel.distributed import RowLayout
 from . import assign as assign_mod
 from . import moves as moves_mod
 from .smart import smart_sublabels
@@ -60,16 +64,19 @@ def stochastic_bf16(feat: torch.Tensor, seed: int, row0: int = 0):
     return (top - ((top >> 15) << 16)).to(torch.int16).view(torch.bfloat16)
 
 
-def bf16_features(family, points: torch.Tensor, seed: int) -> torch.Tensor:
-    """The bf16 feature cache [N, F] of ``points``, built FEATURIZE_ROWS
-    rows at a time (a whole f32 cache of 10M x 64-d points would be 86 GB);
-    the bits do not depend on the chunk size."""
+def bf16_features(family, points: torch.Tensor, seed: int,
+                  row0: int = 0) -> torch.Tensor:
+    """The bf16 feature cache [N, F] of ``points`` (global rows ``row0
+    ..``), built FEATURIZE_ROWS rows at a time (a whole f32 cache of 10M x
+    64-d points would be 86 GB); the bits do not depend on the chunk
+    size."""
     n, d = points.shape
     out = torch.empty((n, family.feature_dim(d)), dtype=torch.bfloat16,
                       device=points.device)
     for p0 in range(0, n, FEATURIZE_ROWS):
         p1 = min(n, p0 + FEATURIZE_ROWS)
-        out[p0:p1] = stochastic_bf16(family.features(points[p0:p1]), seed, p0)
+        out[p0:p1] = stochastic_bf16(family.features(points[p0:p1]), seed,
+                                     row0 + p0)
     return out
 
 
@@ -128,26 +135,39 @@ class IterStats:
 
 
 class DPMMEngine:
-    """The sampler for one (family, config, device)."""
+    """The sampler for one (family, config, device) and, across processes,
+    one rank's :class:`~..parallel.distributed.RowLayout` (by default one
+    process holding every row)."""
 
-    def __init__(self, family, cfg: DPMMConfig, device="cuda"):
+    def __init__(self, family, cfg: DPMMConfig, device="cuda",
+                 layout: Optional[RowLayout] = None):
         self.family = family
         self.cfg = cfg
         self.device = torch.device(device)
+        self.layout = RowLayout() if layout is None else layout
         self._x_is_features = bool(cfg.precompute_features)
-        self._sweep = make_sweep(family, cfg)
+        self._sweep = make_sweep(family, cfg, self.layout)
         self._smart_on = cfg.resolved_smart_splits(family.name)
-        self._smart = make_smart_pass(family, cfg) if self._smart_on else None
+        self._smart = (make_smart_pass(family, cfg, self.layout)
+                       if self._smart_on else None)
 
     # -- data placement -----------------------------------------------------
     def shard_points(self, x: np.ndarray):
-        """Place [N, D] host points on the device.  Returns ``(points, valid,
-        n_total)``; no padding is needed, so every row is valid."""
-        points = torch.as_tensor(np.ascontiguousarray(x, np.float32)).to(
-            self.device)
-        valid = torch.ones(points.shape[0], dtype=torch.bool,
-                           device=self.device)
-        return points, valid, float(points.shape[0])
+        """Place this rank's [N, D] host points on the device.  Returns
+        ``(points, valid, n_total)``: across ranks the rows are padded to
+        the layout's ``n_pad`` with invalid zero rows and ``n_total`` is
+        the global count of real rows; in one process every row is
+        valid."""
+        x = torch.as_tensor(np.ascontiguousarray(x, np.float32))
+        n, lay = x.shape[0], self.layout
+        if lay.world == 1:
+            valid = torch.ones(n, dtype=torch.bool, device=self.device)
+            return x.to(self.device), valid, float(n)
+        points = torch.zeros((lay.n_pad, x.shape[1]), dtype=torch.float32,
+                             device=self.device)
+        points[:n] = x.to(self.device)
+        valid = torch.arange(lay.n_pad, device=self.device) < n
+        return points, valid, float(lay.n_global)
 
     def featurize(self, points: torch.Tensor, seed: int = 0):
         """The feature cache (for the Gaussian family rows [1, x, triu(x
@@ -170,14 +190,16 @@ class DPMMEngine:
                 "feature_dtype='hybrid' requires the gaussian family (its "
                 "statistics are the Gaussian rows built from the raw "
                 f"points); got family {self.family.name!r}")
-        feat = bf16_features(self.family, points, seed)
+        feat = bf16_features(self.family, points, seed,
+                             self.layout.row_start)
         return {"feat": feat, "raw": points} if dt == "hybrid" else feat
 
     # -- state --------------------------------------------------------------
     def _stats(self, points, valid, labels, sublabels, k: int):
-        return assign_mod.lr_to_full(assign_mod.stats_only(
+        stats_lr = assign_mod.stats_only(
             points, valid, labels, sublabels, k, family=self.family,
-            x_is_features=self._x_is_features))
+            x_is_features=self._x_is_features)
+        return assign_mod.lr_to_full(self.layout.reduce(stats_lr))
 
     def init_state(self, gen: torch.Generator, points, valid, prior,
                    outlier_prior=None,
@@ -190,11 +212,16 @@ class DPMMEngine:
         n = valid.shape[0]
         d = data_dim(prior)
         offset = 1 if cfg.outlier_mod > 0 else 0
-        labels = torch.randint(offset, offset + cfg.init_clusters, (n,),
-                               generator=gen, device=self.device,
-                               dtype=torch.int32)
-        sublabels = torch.randint(0, 2, (n,), generator=gen,
-                                  device=self.device, dtype=torch.int32)
+        # per-point draws of the replicated generator (the global padded
+        # length across ranks, this rank's slice)
+        def draw(lo, hi):
+            return self.layout.per_point(
+                lambda m: torch.randint(lo, hi, (m,), generator=gen,
+                                        device=self.device,
+                                        dtype=torch.int32), n)
+
+        labels = draw(offset, offset + cfg.init_clusters)
+        sublabels = draw(0, 2)
         if init_labels is not None:
             labels = torch.as_tensor(
                 np.asarray(init_labels, np.int32) + offset).to(self.device)
@@ -206,7 +233,7 @@ class DPMMEngine:
             sublabels = smart_sublabels(
                 assign_mod.raw_points(points, d, self._x_is_features), valid,
                 labels, sublabels, stats_w, stats_w["n"] > 0,
-                cfg.max_split_iter)
+                cfg.max_split_iter, reduce=self.layout.reduce)
             flat3 = self._stats(points, valid, labels, sublabels, cfg.k_max)
 
         prior = {k: v.to(self.device) for k, v in prior.items()}

@@ -5,7 +5,8 @@ PyTorch counterpart of :mod:`dpmmsubclusters_tpu.sampler.smart`
 for every marked slot at once: top eigenvector of each slot's covariance by
 power iteration, per-point projection, 2-means seeded at mean +/- std, and
 Lloyd iterations.  The per-slot sums are ``index_add_`` reductions (the JAX
-version's chunked one-hot matmuls exist for the TPU's scatter cost).
+version's chunked one-hot matmuls exist for the TPU's scatter cost), in
+torch's deterministic mode so that a seed gives one trajectory on a card.
 """
 from __future__ import annotations
 
@@ -42,21 +43,38 @@ def top_eigvec(mat: torch.Tensor, iters: int = 25) -> torch.Tensor:
 
 
 def _slot_sums(labels: torch.Tensor, vals: torch.Tensor, k: int):
-    """[K, C] per-slot sums of the [N, C] rows ``vals``."""
+    """[K, C] per-slot sums of the [N, C] rows ``vals``, in an order fixed
+    run to run: on a card the default ``index_add_`` adds with float
+    atomics, whose order (and so the sums' last bits, and the chain) would
+    change between runs of one seed; under torch's deterministic mode it
+    sorts the indices first.  The host's ``index_add_`` adds in row order
+    either way."""
     out = torch.zeros((k, vals.shape[1]), dtype=vals.dtype,
                       device=vals.device)
-    return out.index_add_(0, labels, vals)
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return out.index_add_(0, labels, vals)
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn_only)
 
 
 def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
-                    max_iter: int) -> torch.Tensor:
+                    max_iter: int, reduce=None) -> torch.Tensor:
     """Sub-labels (int32 [N]) with the points of marked slots set by the
     projected 2-means; all other points keep their current sub-label.
 
     points [N, D] raw points; valid bool [N]; labels/sublabels int32 [N];
     stats_w whole-side stats (n [K], sum_x [K, D], sum_xx [K, D, D]);
     slots_mask bool [K].  The Lloyd loop checks its movement tolerance on
-    the host (one sync per iteration, at most ``max_iter``)."""
+    the host (one sync per iteration, at most ``max_iter``).  Across ranks
+    ``reduce`` sums the per-slot sums over ranks (the projection moments
+    and each Lloyd step's), so the tolerance and the movement the host
+    reads are the same on every rank."""
+    if reduce is None:
+        def reduce(t):
+            return t
     k = slots_mask.shape[0]
     nk = torch.clamp(stats_w["n"], min=1.0)
     mu = stats_w["sum_x"] / nk[:, None]
@@ -67,7 +85,8 @@ def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
     off = (mu * v).sum(-1)                       # projected-mean offset
     t = (points * v[lab]).sum(-1) - off[lab]     # [N]
     w = slots_mask.to(points.dtype)[lab] * valid.to(points.dtype)
-    acc = _slot_sums(lab, torch.stack([w, w * t, w * t * t], dim=-1), k)
+    acc = reduce(_slot_sums(lab, torch.stack([w, w * t, w * t * t], dim=-1),
+                            k))
     cnt = torch.clamp(acc[:, 0], min=1.0)
     mean = acc[:, 1] / cnt
     var = acc[:, 2] / cnt - mean ** 2
@@ -84,9 +103,9 @@ def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
     tol = 1e-3 * float(torch.clamp(std.max(), min=1e-12))
     for _ in range(max_iter):
         side = sides(m)
-        s = _slot_sums(lab, torch.stack(
+        s = reduce(_slot_sums(lab, torch.stack(
             [w * (1.0 - side), w * side, w * (1.0 - side) * t, w * side * t],
-            dim=-1), k)
+            dim=-1), k))
         m2 = torch.stack([
             torch.where(s[:, 0] > 0, s[:, 2] / torch.clamp(s[:, 0], min=1.0),
                         m[:, 0]),

@@ -33,20 +33,23 @@ def _set_stats(family, table, flat3):
 
 
 def _stats_pass(family, table, points, valid, labels, sublabels,
-                x_is_features: bool):
-    """Table statistics recomputed from the given labels (kernel B)."""
+                x_is_features: bool, layout):
+    """Table statistics recomputed from the given labels (kernel B), summed
+    over the layout's ranks."""
     stats_lr = assign_mod.stats_only(points, valid, labels, sublabels,
                                      table["active"].shape[0], family=family,
                                      x_is_features=x_is_features)
-    return _set_stats(family, table, assign_mod.lr_to_full(stats_lr))
+    return _set_stats(family, table,
+                      assign_mod.lr_to_full(layout.reduce(stats_lr)))
 
 
-def make_smart_pass(family, cfg):
+def make_smart_pass(family, cfg, layout):
     """The smart sub-label pass (PCA + 2-means init and a statistics
     refresh) for the slots marked ``needs_smart`` by split_move, clearing the
     marks.  Only newborn slots are (re)initialized, matching the reference's
     per-newborn ``smart_cluster_init!`` (src/local_clusters_actions.jl:
-    374-378).  A no-op after one host sync when nothing is marked."""
+    374-378).  A no-op after one host sync when nothing is marked; the
+    marks are replicated, so every rank takes the same branch."""
     x_is_features = bool(cfg.precompute_features)
 
     def smart_pass(table, labels, sublabels, points, valid):
@@ -57,23 +60,28 @@ def make_smart_pass(family, cfg):
         stats_w = {name: a[:, 0] for name, a in table["stats"].items()}
         sub2 = smart_mod.smart_sublabels(
             assign_mod.raw_points(points, d, x_is_features), valid, labels,
-            sublabels, stats_w, mask, cfg.max_split_iter)
+            sublabels, stats_w, mask, cfg.max_split_iter,
+            reduce=layout.reduce)
         table = _stats_pass(family, table, points, valid, labels, sub2,
-                            x_is_features)
+                            x_is_features, layout)
         return {**table, "needs_smart": table["needs_smart"] & ~mask}, sub2
 
     return smart_pass
 
 
-def make_sweep(family, cfg):
-    """Build the sweep function:
+def make_sweep(family, cfg, layout):
+    """Build the sweep function for one rank's
+    :class:`~..parallel.distributed.RowLayout`:
 
       sweep(table, labels, sublabels, gen, points, valid, n_total,
             final, no_more_splits) -> (table, labels, sublabels, metrics)
 
     ``final`` and ``no_more_splits`` are host bools; ``metrics`` holds
     device scalars (``k``, ``log_posterior``) so a block of sweeps needs no
-    host sync for them."""
+    host sync for them.  Across ranks kernel A's hash tiles start at the
+    layout's ``tile_off``, every statistics pass is summed over ranks, and
+    the per-point redraw takes this rank's slice of a global draw; every
+    host branch reads the replicated table."""
     alpha = float(cfg.alpha)
     outlier_mod = float(cfg.outlier_mod)
     freeze_outlier = outlier_mod > 0 and not cfg.resample_outlier_params
@@ -87,11 +95,14 @@ def make_sweep(family, cfg):
         split_cluster_local_worker!, :265-278,481-516)."""
         if not bool(flag):
             return table, sublabels
-        fresh = torch.randint(0, 2, sublabels.shape, generator=gen,
-                              device=sublabels.device, dtype=sublabels.dtype)
+        fresh = layout.per_point(
+            lambda m: torch.randint(0, 2, (m,), generator=gen,
+                                    device=sublabels.device,
+                                    dtype=sublabels.dtype),
+            sublabels.shape[0])
         sublabels = torch.where(slot_mask[labels.long()], fresh, sublabels)
         return (_stats_pass(family, table, points, valid, labels, sublabels,
-                            x_is_features),
+                            x_is_features, layout),
                 sublabels)
 
     def sweep(table, labels, sublabels, gen, points, valid, n_total,
@@ -110,10 +121,12 @@ def make_sweep(family, cfg):
         labels, sublabels, stats_lr = assign_mod.assign_and_stats(
             points, valid, table["params"]["phi"], table["log_weights"],
             torch.log(torch.clamp(table["lr_weights"], min=1e-37)),
-            seed, bool(final or cfg.hard_clustering), family=family,
-            x_is_features=x_is_features, ll_precision=cfg.ll_precision,
+            seed, bool(final or cfg.hard_clustering), layout.tile_off,
+            family=family, x_is_features=x_is_features,
+            ll_precision=cfg.ll_precision,
         )
-        table = _set_stats(family, table, assign_mod.lr_to_full(stats_lr))
+        table = _set_stats(family, table,
+                           assign_mod.lr_to_full(layout.reduce(stats_lr)))
 
         # F: reset clusters with an empty sub-cluster
         table, any_bad, bad = moves.reset_bad(table, family)

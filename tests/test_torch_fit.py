@@ -118,18 +118,23 @@ def test_fit_runs_outlier_tiers_and_exact_stats():
     assert res.model.table["is_outlier"][0]
 
 
-def test_fit_refusals():
-    """No card: ``device="cuda"`` raises.  Multi-process mode is not ported
-    yet, and the CLI's ``--distributed`` says so; both bf16 cache layouts
-    are, and fit takes them."""
+def test_fit_refusals(monkeypatch):
+    """No card: ``device="cuda"`` raises.  The CLI's ``--distributed``
+    without a launcher's environment or a ``--coordinator`` says what it
+    needs; both bf16 cache layouts are ported, and fit takes them."""
     from dpmmsubclusters_tpu_torch import run
 
     x, _ = four_corners(16)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tdpmm.fit(x, iters=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         run.main(["params.json", "--distributed", "--device", "cpu"])
+    with pytest.raises(ValueError, match="num_processes"):
+        run.main(["params.json", "--distributed", "--device", "cpu",
+                  "--coordinator", "localhost:1"])
     for dt in ("bfloat16", "hybrid"):
         res = tdpmm.fit(x, iters=1, device="cpu", verbose=False,
                         feature_dtype=dt)
