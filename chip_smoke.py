@@ -2,8 +2,11 @@
 NVIDIA GPU: builds the hand-written kernels from csrc/, checks each kernel
 and variant against its plain PyTorch version at the shapes the fits give it
 (kernel A under both ll_precision "highest", the exact float32 product, and
-"default", one bf16 pass on the tensor cores, with the two times side by
-side, and at two shapes under "high", the three-pass split; and the
+"default" -- on float32 rows the three-pass bf16 split on the tensor
+cores, "high"'s kernel bit for bit; on a bf16 cache one bf16 pass --, with
+the two times side by side, "bf16" (the earlier "default") beside them at
+every f32 shape the earlier "default" was checked at, and at two shapes
+under "high"; and the
 raw-point and bf16 variants against the f32 cache variant bit for bit
 under both; kernel B under uniform labels, every point in one key and the
 labels of one kernel A call, its key sort equal to the plain sort, and its
@@ -111,7 +114,8 @@ SOURCES = {
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s,
 # float32 FLOP/s outside the tensor cores, and dense bf16 FLOP/s of the
-# tensor cores (kernel A's ll product under ll_precision "default")
+# tensor cores (kernel A's ll product under ll_precision "default", "bf16"
+# and "high")
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
@@ -238,10 +242,15 @@ def check_assign(torch, sk, name: str, case: Case, smi: str,
                  ll_precision: str = "highest") -> dict:
     """Kernel A against its plain version at one ``ll_precision``: hard
     labels identical except near ties, soft labels and sub-labels agreeing
-    >= 0.999, statistics at rtol 1e-4 / atol 1e-3, two launches equal."""
+    >= 0.999, statistics within 1e-5 of their terms' magnitudes of the
+    plain float64 sums at the kernel's labels, two launches equal.  Under
+    the three-pass split ("high", and "default" on float32 rows) the
+    sub-labels must also be equal wherever the labels are, hard and soft,
+    but at near ties of the sub-label's draw (:func:`sub_ties_only`)."""
     x, valid, k = case.x, case.valid, case.k
     name = f"{name} [{ll_precision}]"
     kw = dict(case.kw(), ll_precision=ll_precision)
+    route = sk.ll_route(case.family, ll_precision)
 
     def run(hard):
         return sk.fused_assign(*case.args(), hard, **kw)
@@ -249,18 +258,17 @@ def check_assign(torch, sk, name: str, case: Case, smi: str,
     def plain(hard):
         return sk.fused_assign_reference(*case.args(), hard, **kw)
 
-    lk, _, _ = run(True)
-    lp, _, _ = plain(True)
+    lk, sk_, _ = run(True)
+    lp, sp, _ = plain(True)
     torch.cuda.synchronize()
     diff = torch.nonzero(lk != lp)[:, 0]
     if diff.numel():
         # a flip is only allowed where the plain logits tie to within the
         # float32 rounding of an F-term dot product in another order (under
-        # "default" both sides round their operands to bf16 alike, so there
-        # too only the order of the float32 sums differs)
+        # "bf16" and "high" both sides round their operands to bf16 planes
+        # alike, so there too only the order of the float32 sums differs)
         rows = sk.feature_rows(x[diff], case.family)
-        ll = sk.ll_product(rows, case.phi_mat[:, :k], ll_precision) \
-            + case.log_w
+        ll = sk.ll_product(rows, case.phi_mat[:, :k], route) + case.log_w
         top2 = torch.topk(ll, 2, dim=-1).values
         gap = (top2[:, 0] - top2[:, 1]).abs()
         bound = 1e-4 * top2[:, 0].abs().clamp(min=1.0)
@@ -270,43 +278,68 @@ def check_assign(torch, sk, name: str, case: Case, smi: str,
     n = x.shape[0]
     log(f"{name} hard: {n - diff.numel()}/{n} labels identical "
         f"({diff.numel()} near-tie flips)")
+    ties = []
+    if route == "high":
+        ties.append(sub_ties_only(torch, sk, case, lk, sk_, sp, lk == lp))
     lk, sk_, stk = run(False)
     lp, sp, _ = plain(False)
     agree_l = float((lk == lp).float().mean())
     agree_s = float((sk_ == sp).float().mean())
     log(f"{name} soft: labels agree {agree_l:.6f}, sub-labels {agree_s:.6f}")
     assert agree_l >= 0.999 and agree_s >= 0.999, (name, agree_l, agree_s)
-    if case.x_raw is None:
-        st_plain = sk.stats_from_labels_reference(x, lk, sk_, valid, k,
-                                                  case.family)
-    else:      # hybrid: the statistics are the raw points' Gaussian rows
-        st_plain = sk.stats_from_labels_reference(case.x_raw, lk, sk_, valid,
-                                                  k, "gaussian")
-    err = close(torch, stk, st_plain, 1e-4, 1e-3)
+    if route == "high":
+        ties.append(sub_ties_only(torch, sk, case, lk, sk_, sp, lk == lp))
+        log(f"{name}: sub-labels equal to the plain version's wherever the "
+            f"labels are, but {ties} (hard, soft) near ties of the "
+            f"sub-label's draw")
+    # the statistics at the kernel's labels against the plain sums in
+    # float64, within 1e-5 of the terms' magnitudes (a float32 sum of many
+    # terms that cancel can hold no bound relative to its result); hybrid's
+    # statistics are the raw points' Gaussian rows
+    stat_x, stat_family = ((x, case.family) if case.x_raw is None
+                           else (case.x_raw, "gaussian"))
+    want, mag = plain_stats_f64(torch, sk, stat_x, lk, sk_, valid, k,
+                                stat_family)
+    err = close_sums(torch, stk.double(), want, mag)
+    # the earlier check (plain float32 sums, rtol 1e-4 / atol 1e-3): its
+    # worst entry, with the kernel's and the float32 plain sums' distances
+    # from float64, so a miss there shows which side the float64 sum backs
+    st32 = sk.stats_from_labels_reference(stat_x, lk, sk_, valid, k,
+                                          stat_family)
+    ratio = (stk - st32).abs() / (1e-3 + 1e-4 * st32.abs())
+    i = int(ratio.argmax())
+    at = (t.reshape(-1)[i] for t in (ratio, stk.double(), st32.double(),
+                                     want, mag))
+    worst, kern, f32, f64, m = (float(v) for v in at)
+    log(f"{name} statistics, the earlier check's worst entry (flat index "
+        f"{i}): {int((ratio > 1).sum())} entries outside rtol 1e-4 / atol "
+        f"1e-3 of the float32 plain sums (worst at {worst:.3g}x the "
+        f"bound); there float64 {f64!r}, kernel {kern!r} (off "
+        f"{abs(kern - f64):.3g}), float32 plain {f32!r} (off "
+        f"{abs(f32 - f64):.3g}), sum of |terms| {m!r}")
+    del want, mag, st32, ratio
     l2, s2, st2 = run(False)
     assert torch.equal(l2, lk) and torch.equal(s2, sk_) and torch.equal(
         st2, stk), f"{name} is not deterministic"
     ms = time_ms(torch, lambda: run(False))
     # the assign pass alone: the call less its statistics pass, which is
     # kernel B's launch on the same rows and labels
-    stat_x, stat_family = ((x, case.family) if case.x_raw is None
-                           else (case.x_raw, "gaussian"))
     pass_ms = ms - time_ms(torch, lambda: sk.stats_from_labels(
         stat_x, lk, sk_, valid, k, stat_family))
     plain_ms = time_ms(torch, lambda: plain(False))
     f = case.phi_mat.shape[0]
     # the function needs each point's whole columns and its label's one
     # delta column (2 flop a term; on the tensor cores at bf16's peak under
-    # "default", three such products under "high", else float32's), the
-    # built rows' products and one add a statistic (float32); it reads the
-    # rows, valid, phi and log_w once and writes labels, sub-labels and the
+    # "bf16", three such products under "high", else float32's), the built
+    # rows' products and one add a statistic (float32); it reads the rows,
+    # valid, phi and log_w once and writes labels, sub-labels and the
     # statistics
     n_valid = int(valid.sum())
     nbytes = (case.row_bytes() + n + 4 * (f * 2 * k + k) + 8 * n
               + 4 * 2 * k * f)
     product = 2.0 * n * f * (k + 1)
     rest = n * case.built + n_valid * f
-    passes = {"default": 1, "bf16": 1, "high": 3}.get(ll_precision)
+    passes = {"bf16": 1, "high": 3}.get(route)
     if passes:
         b = least_time(nbytes, passes * product, BF16_FLOP_S, rest,
                        FP32_FLOP_S)
@@ -335,20 +368,50 @@ def check_assign(torch, sk, name: str, case: Case, smi: str,
                 library_ms=None, pass_ms=pass_ms)
 
 
+def sub_ties_only(torch, sk, case: Case, labels, sub, sub_plain,
+                  same) -> int:
+    """Kernel A's sub-labels under the three-pass split against the plain
+    version's at the points whose labels are equal (``same``): where they
+    differ, the draw ``delta + (G_r - G_l) + 1e-30`` must lie within 2e-5
+    of ``|row| . |delta column|`` of 0 (float64 here): both take the split,
+    1.15e-5 of the terms off the float32 delta, in other orders.  Returns
+    the count of such ties."""
+    idx = torch.nonzero(same & (sub != sub_plain))[:, 0]
+    if not idx.numel():
+        return 0
+    k = case.k
+    rows = sk.feature_rows(case.x[idx], case.family).double()
+    col = case.phi_mat[:, k:].double().T[labels[idx].long()]
+    delta = (rows * col).sum(1)
+    scale = (rows.abs() * col.abs()).sum(1)
+    g = idx.long()
+    s = sk.tile_seeds(SEED, g, HASH_TILE) ^ 0xA5A5A5A5
+    g2 = sk.gumbel_noise(s, g % HASH_TILE, 2).double()
+    draw = (delta + (g2[:, 1] - g2[:, 0]) + 1e-30).abs()
+    bad = draw > 2e-5 * scale + 1e-6
+    assert not bool(bad.any()), (
+        f"sub-labels differ beyond near ties at {int(bad.sum())} points")
+    return int(idx.numel())
+
+
 def check_assign_both(torch, sk, out: dict, key: str, name: str, case: Case,
-                      smi: str, high: bool = False) -> None:
+                      smi: str, high: bool = False, bf16: bool = False
+                      ) -> None:
     """Kernel A at both precisions, the two times side by side:
     ``out[key]`` is the "default" result (the fits' kernel), ``out[key +
     " highest"]`` the exact one; with ``high`` also the three-pass split
-    ("high", ``out[key + " high"]``)."""
+    ("high", ``out[key + " high"]``), with ``bf16`` also one bf16 pass of
+    whole and delta columns (``out[key + " bf16"]``; on float32 rows the
+    earlier "default")."""
+    extra = (("high",) if high else ()) + (("bf16",) if bf16 else ())
     res = {p: check_assign(torch, sk, name, case, smi, p)
-           for p in ("highest", "default") + (("high",) if high else ())}
+           for p in ("highest", "default") + extra}
     passes = {p: r.pop("pass_ms") for p, r in res.items()}
     hi, de = res["highest"], res["default"]
-    if high:
-        out[key + " high"] = res["high"]
-        log(f"{name}: \"high\" {res['high']['ms']:.3f} ms, assign pass "
-            f"alone {passes['high']:.3f} ms, same call ({smi})")
+    for p in extra:
+        out[f"{key} {p}"] = res[p]
+        log(f"{name}: \"{p}\" {res[p]['ms']:.3f} ms, assign pass "
+            f"alone {passes[p]:.3f} ms, same call ({smi})")
     log(f"{name}: \"default\" {de['ms']:.3f} ms beside \"highest\" "
         f"{hi['ms']:.3f} ms ({hi['ms'] / de['ms']:.2f}x); assign pass alone "
         f"{passes['default']:.3f} beside {passes['highest']:.3f} ms "
@@ -853,16 +916,19 @@ def twin_gate(torch, sk, case: Case) -> None:
 def bf16_twin_gate(torch, sk, case: Case) -> None:
     """The "bfloat16" variants on a bf16 cache against the "precomputed"
     ones on cache.float(): labels, sub-labels and statistics equal bit for
-    bit under both precisions (the upcast is exact and feeds the same FMA
-    chains; a bf16 value rounds to itself).  The "hybrid"
+    bit under "highest", and under "default" against "precomputed" under
+    "bf16", the route a bf16 cache takes (the upcast is exact and feeds the
+    same FMA chains; a bf16 value rounds to itself).  The "hybrid"
     labels and sub-labels equal them too, and its statistics equal kernel
     B "gaussian" on the raw points at those labels."""
     hyb = case.as_hybrid()
     twin_x = case.x.float()
     for prec, hard in ((p, h) for p in ("highest", "default")
                        for h in (True, False)):
+        # a bf16 cache takes "default" as one bf16 pass of whole and delta
+        # columns: the twin on cache.float() is "bf16"
         twin = sk.fused_assign(twin_x, *case.args()[1:], hard, tile=HASH_TILE,
-                               ll_precision=prec)
+                               ll_precision=sk.ll_route("bfloat16", prec))
         got = sk.fused_assign(*case.args(), hard, **case.kw(),
                               ll_precision=prec)
         for what, a, b in zip(("labels", "sub-labels", "stats"), got, twin):
@@ -1008,15 +1074,23 @@ def check_kernels(torch, dev, smi: str) -> dict:
     del case
     cache = Case(torch, dev, x, "gaussian", K_MAX_FLAG, cache="float32")
     check_assign_both(torch, sk, out, "fused_assign[precomputed]",
-                      "kernel A precomputed", cache, smi, high=True)
+                      "kernel A precomputed", cache, smi, high=True,
+                      bf16=True)
     out["stats_from_labels[precomputed]"] = check_stats(
         torch, sk, "kernel B precomputed", cache, smi)
     del cache
     for k in (192, 256):      # above one pass of 128 whole columns: any K
         wide = Case(torch, dev, x, "gaussian", k, cache="float32")
         check_assign_both(torch, sk, out, f"fused_assign[precomputed] K={k}",
-                          f"kernel A precomputed K={k}", wide, smi)
+                          f"kernel A precomputed K={k}", wide, smi,
+                          bf16=True)
         del wide
+    # "default" on float32 rows at the narrowest pass and one past 128
+    for k in (15, 129):
+        other = Case(torch, dev, x, "gaussian", k, cache="float32")
+        out[f"fused_assign[precomputed] K={k}"] = check_assign(
+            torch, sk, f"kernel A precomputed K={k}", other, smi, "default")
+        del other
     torch.cuda.empty_cache()
     # the flagship's bf16 caches (bfloat16's main path)
     check_bf16(torch, sk, out, torch.as_tensor(x).to(dev), K_MAX_FLAG, smi,
@@ -1027,7 +1101,7 @@ def check_kernels(torch, dev, smi: str) -> dict:
     x = (x - x.mean(0)) / x.std(0)
     case = Case(torch, dev, x, "gaussian", 256)
     check_assign_both(torch, sk, out, "fused_assign[gaussian]",
-                      "kernel A gaussian", case, smi, high=True)
+                      "kernel A gaussian", case, smi, high=True, bf16=True)
     out["stats_from_labels[gaussian]"] = check_stats(
         torch, sk, "kernel B gaussian", case, smi)
     # ... and its 42.9 GB hybrid cache's rows (hybrid's main path): the
@@ -1035,12 +1109,17 @@ def check_kernels(torch, dev, smi: str) -> dict:
     check_bf16(torch, sk, out, case.raw, 256, smi, main=False)
     del case
     torch.cuda.empty_cache()
+    case = Case(torch, dev, x, "gaussian", 128)
+    out["fused_assign[gaussian] K=128"] = check_assign(
+        torch, sk, "kernel A gaussian K=128", case, smi, "default")
+    del case
+    torch.cuda.empty_cache()
 
     # the multinomial fits' counts: D=100, F=101, K=64
     x, _, _ = generate_mnmm_data(N_CHECK, 100, 20, 120, seed=1)
     case = Case(torch, dev, x, "multinomial", 64)
     check_assign_both(torch, sk, out, "fused_assign[multinomial]",
-                      "kernel A multinomial", case, smi)
+                      "kernel A multinomial", case, smi, bf16=True)
     out["stats_from_labels[multinomial]"] = check_stats(
         torch, sk, "kernel B multinomial", case, smi)
     del case
@@ -1861,11 +1940,13 @@ def run_distributed(torch, ref: dict, smi: str) -> dict:
         corners = dict(alpha=100.0, iters=100, seed=SEED, burnout=5,
                        verbose=False)
         counts = (HASH_TILE * 700, n - HASH_TILE * 700)
-        # under "default" the chain stays at K=1 (ROADMAP Queue 3, P8: one
-        # bf16 pass loses duplicate-point sub-clusters); "highest" splits
+        # both precisions must reach K=4: under "default" float32 rows take
+        # the three-pass split (ROADMAP Queue 3, P8: one bf16 pass left this
+        # chain at K=1)
         for prec in ("default", "highest"):
             kw_c = dict(corners, ll_precision=prec)
             one = dpmm.fit(xc, device="cuda", **kw_c)
+            assert one.k == 4, ("(c) K", prec, one.history.k[::10])
             ranks = run_ranks(tmp, f"corners_{prec}", xc, counts, kw_c)
             labels = np.concatenate([r["labels_raw"] for r in ranks])
             assert np.array_equal(labels, one.model.labels_raw), (
@@ -1917,7 +1998,7 @@ def run_distributed(torch, ref: dict, smi: str) -> dict:
 
 
 # the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
-CARD_TESTS = 99
+CARD_TESTS = 123
 
 
 def run_card_tests(smi: str) -> int:
@@ -2153,8 +2234,13 @@ def main() -> int:
             if name == "fused_assign":
                 # the fits' kernel A: the tensor-core assign pass
                 assert launches[variant]["tensor_core"][variant] == n_launch
-                what += ", ll_precision default: one bf16 pass"
-                source = SOURCES["fused_assign_tc"]
+                if sk.ll_route(variant, "default") == "bf16":
+                    what += ", ll_precision default: one bf16 pass"
+                    source = SOURCES["fused_assign_tc"]
+                else:
+                    what += (", ll_precision default: the three-pass bf16 "
+                             "split")
+                    source = SOURCES["fused_assign_tc3"]
             report["kernels"].append({
                 "name": f"{name}[{variant}]", "route": "cuda",
                 "source": source,

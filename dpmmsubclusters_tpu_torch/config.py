@@ -10,10 +10,13 @@ Knobs that only steer the TPU build are accepted and ignored here:
 kernels pick their own point blocks).  ``fused_block`` is the number of
 sweeps between block-boundary smart passes and tier checks.
 ``ll_precision`` is honoured with the JAX package's meaning (kernel A,
-:func:`.ops.sweep_kernels.fused_assign`): "default" and "bf16" round the
-feature rows and phi to bf16 and sum the products in float32, one pass of
-the card's tensor cores; "high" is the float32-faithful three-pass bf16
-split there; "highest" is the exact float32 product.  ``stats_precision`` is
+:func:`.ops.sweep_kernels.fused_assign`; the JAX kernel casts to one bf16
+pass only under "bf16" or for a bf16 cache, and is float32-faithful
+otherwise): "bf16", and "default" on a bf16 cache, round the feature rows
+and phi to bf16 and sum the products in float32, one pass of the card's
+tensor cores; "high", and "default" on float32 rows (the f32 cache, rows
+built from the points), is the float32-faithful three-pass bf16 split
+there; "highest" is the exact float32 product.  ``stats_precision`` is
 accepted;
 the CUDA kernels compute the statistics in exact float32 on every setting.
 """
@@ -106,10 +109,11 @@ class DPMMConfig:
     track_posterior: bool = True    # per-sweep log-posterior metric (the
     # reference computes it only when verbose, dp-parallel-sampling.jl:379)
     ll_precision: str = "default"   # precision of kernel A's ll product:
-    # "default" / "bf16" = rows and phi rounded to bf16, float32 sums, one
-    # tensor-core pass (logit noise ~1e-3 relative -- far below the Gumbel
-    # sampling noise); "high" = the three-pass bf16 split (f32-faithful);
-    # "highest" = exact f32
+    # "default" = "high" on float32 rows, "bf16" on a bf16 cache (why:
+    # ops.sweep_kernels.ll_route);
+    # "bf16" = rows and phi rounded to bf16, float32 sums, one tensor-core
+    # pass (logit noise ~1e-3 relative); "high" = the three-pass bf16 split
+    # (f32-faithful); "highest" = exact f32
     stats_precision: str = "split2"  # statistics-matmul precision.  The
     # covariance suff stat cancels E[xx] - mu mu^T, so plain bf16 ("default")
     # is unusable (K=17/NMI 0.964 on the 200k x 32-d gate).  "split2"/"split3"

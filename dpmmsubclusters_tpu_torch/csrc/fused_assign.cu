@@ -1,8 +1,10 @@
 // Kernel A: the per-sweep assignment + statistics pass, with the exact
-// float32 ll product (ll_precision "highest").  Under "default" / "bf16"
-// (one bf16 pass) and "high" (the three-pass bf16 split) the assign pass is
+// float32 ll product (ll_precision "highest").  Under "bf16" and "default"
+// on a bf16 cache (one bf16 pass) and under "high" and "default" on
+// float32 rows (the three-pass bf16 split) the assign pass is
 // fused_assign_tc.cuh's, on the tensor cores; the C entry points below
-// choose by ``precision`` and launch the statistics pass after either.
+// choose by ``precision`` (ops/sweep_kernels.py's ll_route names it) and
+// launch the statistics pass after either.
 //
 // Replaces dpmmsubclusters_tpu/ops/pallas_sweep.py:518 fused_assign (kernel
 // body _kernel, :264-385; the exact dot is :322-323) in all five variants:
@@ -23,7 +25,8 @@
 // matmul with bf16 planes exists only to make Mosaic build the Gaussian
 // rows exactly; here a column is one rounded product.  The TPU kernel casts
 // phi to bf16 for a bf16 cache at every precision; here that happens under
-// "default" only (fused_assign_tc.cuh), and in this file bf16 is storage:
+// "default" and "bf16" only (fused_assign_tc.cuh), and in this file bf16 is
+// storage:
 // each value is upcast exactly and all arithmetic is f32.
 // The Gumbel noise is the TPU kernel's counter hash, bit for bit: per hash
 // tile of ``tile`` rows the seed is fmix32(seed + (tile_off + row / tile) *

@@ -1,5 +1,6 @@
 // Kernel A's assign pass on the tensor cores, one bf16 pass (ll_precision
-// "default" and "bf16"): the instantiations of fused_assign_tc.cuh with one
+// "bf16", and "default" on a bf16 cache): the instantiations of
+// fused_assign_tc.cuh with one
 // plane, which holds the kernel and its note.  The three-pass split
 // ("high") is fused_assign_tc3.cu, so the two build side by side.
 #include "fused_assign_tc.cuh"

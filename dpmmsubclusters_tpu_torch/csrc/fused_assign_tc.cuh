@@ -2,12 +2,15 @@
 // planes of rows and phi, the products summed in float32.
 //
 // Replaces the ll product of dpmmsubclusters_tpu/ops/pallas_sweep.py:518
-// fused_assign (kernel body _kernel) under two of its precisions: with one
-// plane, the single bf16 pass that ll_precision "default" and "bf16" name
-// (the cast at :311-320); with two planes, "high" (:322-323 at
-// Precision.HIGH, XLA's bf16x3): rows and phi each split into hi =
-// bf16(v) and lo = bf16(v - hi), and hi x hi + hi x lo + lo x hi summed,
-// float32-faithful to about 2^-17 of a term.  Everything after the product
+// fused_assign (kernel body _kernel) under its precisions: with one plane,
+// the single bf16 pass of the JAX kernel's cast (:311-320), which it takes
+// under ll_precision "bf16" and for a bf16 cache (so "default" there too);
+// with two planes, "high" (:322-323 at Precision.HIGH, XLA's bf16x3) and
+// "default" on float32 rows, where the JAX kernel's dot is
+// float32-faithful: rows and phi each split into hi = bf16(v) and lo =
+// bf16(v - hi), and hi x hi + hi x lo + lo x hi summed, float32-faithful to
+// about 2^-17 of a term (why "default" needs it: ops/sweep_kernels.py's
+// ll_route).  Everything after the product
 // (the Gumbel argmax, the sub-label, the hash, the NaN and tie rules) is
 // fused_assign.cu's, bit for bit.  fused_assign.cu keeps the exact float32
 // product ("highest") and launches the statistics pass after either.

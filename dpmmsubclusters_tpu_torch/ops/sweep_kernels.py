@@ -29,16 +29,25 @@ raises), a CPU tensor runs the plain version.  Each wrapper counts its
 kernel launches per variant in ``<wrapper>.launches``.
 
 Kernel A's ll product ``rows @ phi_mat`` takes the config's ``ll_precision``
-(:func:`ll_product` is its plain form), with the JAX package's meaning:
-``"default"`` and ``"bf16"`` round rows and phi to bf16 (to nearest even)
-and sum the exact products in float32 -- on the card one pass of the tensor
-cores; ``"high"`` is the float32-faithful three-pass split (XLA's bf16x3:
-rows and phi each as a bf16 ``hi`` plus a bf16 ``lo``, and ``hi*hi + hi*lo
-+ lo*hi``), three passes of the tensor cores (both
-``csrc/fused_assign_tc.cuh``; those launches are also counted in
-``fused_assign.tensor_core_launches``); ``"highest"`` is exact float32
-(``csrc/fused_assign.cu``).  The statistics are exact float32 on every
-setting.
+(:func:`ll_product` is its plain form, :func:`ll_route` the product a
+variant takes), with the JAX package's meaning.  The JAX kernel casts its
+operands to one bf16 pass only under ``"bf16"`` or for a bf16 cache
+(``pallas_sweep.py:311-320``); otherwise its dot is float32-faithful.  So:
+
+* ``"bf16"``, and ``"default"`` on a bf16 cache (``bfloat16``,
+  ``hybrid``): rows and phi rounded to bf16 (to nearest even) and the exact
+  products summed in float32, one pass of the card's tensor cores
+  (``csrc/fused_assign_tc.cu``);
+* ``"high"``, and ``"default"`` on float32 rows (``precomputed``,
+  ``gaussian``, ``multinomial``): the float32-faithful three-pass split
+  (XLA's bf16x3: rows and phi each as a bf16 ``hi`` plus a bf16 ``lo``, and
+  ``hi*hi + hi*lo + lo*hi``), three passes of the tensor cores
+  (``csrc/fused_assign_tc3.cu``; :func:`ll_route` says why);
+* ``"highest"``: exact float32 (``csrc/fused_assign.cu``).
+
+The tensor-core launches are also counted in
+``fused_assign.tensor_core_launches``.  The statistics are exact float32 on
+every setting.
 
 The Gumbel noise is the TPU kernel's counter hash, reproduced bit for bit
 (:func:`gumbel_noise`), so fed the same integer seed, ``tile_off`` and hash
@@ -66,9 +75,10 @@ FIT_CTA_POINTS = 128
 STATS_VARIANTS = ("precomputed", "gaussian", "multinomial", "bfloat16")
 _BF16 = ("bfloat16", "hybrid")
 LL_PRECISIONS = ("default", "high", "highest", "bf16")
-# the C entry points' ``precision``: 0 the exact kernel, else the planes of
-# the tensor-core kernel (1: one bf16 pass, 2: the three-pass split)
-_PLANES = {"highest": 0, "default": 1, "bf16": 1, "high": 2}
+# the C entry points' ``precision`` of each product (ll_route): 0 the exact
+# kernel, else the planes of the tensor-core kernel (1: one bf16 pass, 2:
+# the three-pass split)
+_PLANES = {"highest": 0, "bf16": 1, "high": 2}
 _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
 # kernel B's chunk (points a statistics partial sums) and its key sort's
 # layout: warps a chunk, and the most buckets whose tables fit in shared
@@ -205,21 +215,41 @@ def key_sort_reference(labels, sub, valid, k: int, chunk: int = STATS_CHUNK):
     return perm, offsets
 
 
-def ll_product(rows, phi_mat, ll_precision: str = "highest"):
-    """Plain form of kernel A's ll product: float32 ``rows [R, F] @ phi_mat
-    [F, 2K]``; under ``"default"`` / ``"bf16"`` both operands are first
-    rounded to bf16, under ``"high"`` each is split into a bf16 ``hi`` and
-    the bf16 rounding ``lo`` of the rest and ``hi @ hi + hi @ lo + lo @ hi``
-    is summed (the products of bf16 values are exact in float32, so only
-    the order of the float32 sums is the implementation's own)."""
+def ll_route(family_name: str, ll_precision: str) -> str:
+    """The ll product kernel A computes for a variant at an
+    ``ll_precision``: ``"bf16"``, ``"high"`` or ``"highest"``.  The setting
+    itself, but ``"default"`` is ``"bf16"`` on a bf16 cache (its rows carry
+    bf16 values only, and the JAX kernel casts phi to bf16 for it too) and
+    ``"high"`` on float32 rows (where the JAX kernel's dot is
+    float32-faithful).  One bf16 pass is not enough there: a cluster or
+    sub-cluster of duplicate points has coefficients that cancel from ~1e5
+    to O(1) at its own points, which one bf16 pass gets wrong by tens to
+    hundreds of nats, so the chain stalls at the 50/50 saddle (ROADMAP
+    Queue 3 P8)."""
     if ll_precision not in LL_PRECISIONS:
         raise ValueError(f"ll_precision must be one of {LL_PRECISIONS}; "
                          f"got {ll_precision!r}")
-    planes = _PLANES[ll_precision]
-    if planes == 0:
+    if ll_precision == "default":
+        return "bf16" if family_name in _BF16 else "high"
+    return ll_precision
+
+
+def ll_product(rows, phi_mat, ll_precision: str = "highest"):
+    """Plain form of kernel A's ll product: float32 ``rows [R, F] @ phi_mat
+    [F, 2K]``, under one of :func:`ll_route`'s products: ``"bf16"`` rounds
+    both operands to bf16 first; ``"high"`` splits each into a bf16 ``hi``
+    and the bf16 rounding ``lo`` of the rest and sums ``hi @ hi + hi @ lo +
+    lo @ hi`` (the products of bf16 values are exact in float32, so only the
+    order of the float32 sums is the implementation's own); ``"highest"``
+    is the float32 product."""
+    if ll_precision not in _PLANES:
+        raise ValueError(f"ll_product's ll_precision must be one of "
+                         f"{tuple(_PLANES)} (ll_route); got "
+                         f"{ll_precision!r}")
+    if ll_precision == "highest":
         return rows @ phi_mat
     r_hi, p_hi = rows.bfloat16().float(), phi_mat.bfloat16().float()
-    if planes == 1:
+    if ll_precision == "bf16":
         return r_hi @ p_hi
     r_lo = (rows - r_hi).bfloat16().float()
     p_lo = (phi_mat - p_hi).bfloat16().float()
@@ -235,13 +265,14 @@ def fused_assign_reference(x, valid, phi_mat, log_w, seed, tile_off=0,
     n = x.shape[0]
     k = log_w.shape[0]
     seed = int(seed)
+    route = ll_route(family_name, ll_precision)
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
     sub = torch.empty(n, dtype=torch.int32, device=x.device)
     noise = 0.0 if hard else 1.0
     for p0 in range(0, n, _PLAIN_ROWS):
         p1 = min(n, p0 + _PLAIN_ROWS)
         ll = ll_product(feature_rows(x[p0:p1], family_name), phi_mat,
-                        ll_precision)                           # [R, 2K]
+                        route)                                  # [R, 2K]
         logits = ll[:, :k] + log_w[None, :]
         logits = torch.where(torch.isnan(logits), float("-inf"), logits)
         rows = torch.arange(p0, p1, dtype=torch.int64, device=x.device)
@@ -415,8 +446,9 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
             128, or 64 or 256 for "precomputed" at K <= 128 under "highest"
             (the results do not depend on it; launches count under
             "precomputed cta=64" and "... cta=256")
-    ll_precision  the ll product (module note): "default" / "bf16" one bf16
-            pass on the tensor cores, "high" the three-pass split there,
+    ll_precision  the ll product (module note): "bf16" one bf16 pass on
+            the tensor cores, "high" the three-pass split there, "default"
+            the split on float32 rows and one pass on a bf16 cache,
             "highest" exact float32; the function's default is "highest",
             the config's "default"
 
@@ -424,10 +456,7 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     with stats rows ``[LEFT K | RIGHT K]``.
     """
     _check_variant(family_name, VARIANTS, x_raw)
-    if ll_precision not in LL_PRECISIONS:
-        raise ValueError(f"ll_precision must be one of {LL_PRECISIONS}; "
-                         f"got {ll_precision!r}")
-    planes = _PLANES[ll_precision]
+    planes = _PLANES[ll_route(family_name, ll_precision)]
     tensor_cores = planes > 0
     if cta_points not in CTA_POINTS or (cta_points != FIT_CTA_POINTS and (
             family_name != "precomputed" or log_w.shape[0] > 128

@@ -1,6 +1,9 @@
 """Kernel A's tensor-core pass on the card under ``ll_precision``
-"default" and "high" against its plain version at the same setting, for
-every variant and above and below one pass of columns (moved here from
+"bf16" (one bf16 pass; "default" takes it on a bf16 cache) and "high" (the
+three-pass split; "default" takes it on float32 rows, which
+tests/test_torch_card_default_route.py checks) against its plain version
+at the same setting, for every variant and above and below one pass of
+columns (moved here from
 tests/test_torch_ll_precision.py, whose CPU tests hold the plain version
 against the Pallas kernel).
 
@@ -61,7 +64,7 @@ def _case(rng, variant, k, d=None):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ll_precision", ["default", "high"])
+@pytest.mark.parametrize("ll_precision", ["bf16", "high"])
 @pytest.mark.parametrize("k", [8, 128, 192])
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_cuda_tensor_core_pass_matches_plain(rng, variant, k, ll_precision):

@@ -135,7 +135,8 @@ def _assert_sums_close(got, want, rows, valid):
 @pytest.mark.parametrize("k", [8, 192])
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_plain_one_bf16_pass_matches_pallas(rng, variant, k):
-    """Under "bf16" (what "default" means on the card) the plain version
+    """Under "bf16" (one bf16 pass of whole and delta columns, the Pallas
+    kernel's cast; also "default" on a bf16 cache) the plain version
     rounds rows and phi as the Pallas kernel's cast does: hard labels equal
     except where the top two logits tie, soft labels and sub-labels agree
     >= 0.999 where the labels do, and the statistics agree at equal labels.
@@ -164,8 +165,10 @@ def test_plain_one_bf16_pass_matches_pallas(rng, variant, k):
 
 
 def test_default_is_the_bf16_pass_and_rounds_to_nearest_even(rng):
-    """"default" and "bf16" are one product; its operands are rounded to
-    bf16 to nearest, ties to even, and the sums are float32."""
+    """"bf16" is one bf16 pass: its operands are rounded to bf16 to
+    nearest, ties to even, and the sums are float32.  ("default" is that
+    pass only on a bf16 cache, and the three-pass split on float32 rows:
+    tests/test_torch_default_route.py.)"""
     rows = torch.from_numpy(
         (rng.standard_normal((64, 37)) * 10.0 ** rng.uniform(
             -3, 3, size=(64, 37))).astype(np.float32))
@@ -179,8 +182,7 @@ def test_default_is_the_bf16_pass_and_rounds_to_nearest_even(rng):
         b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
         return torch.from_numpy(b.astype(np.uint32).view(np.float32))
 
-    got = sk.ll_product(rows, phi, "default")
-    assert torch.equal(got, sk.ll_product(rows, phi, "bf16"))
+    got = sk.ll_product(rows, phi, "bf16")
     assert rne(rows)[0, 0] == 1.0 and rne(rows)[0, 1] == 1.0 + 2.0 ** -6
     assert torch.equal(got, rne(rows) @ rne(phi))
     assert got.dtype == torch.float32
@@ -248,19 +250,22 @@ def test_highest_is_unchanged_and_the_functions_default(rng):
 
 def test_bf16_cache_rounds_phi_only_under_default(rng):
     """A bf16 cache's rows are bf16 already: under "default" the plain
-    "bfloat16" variant equals "precomputed" on cache.float() bit for bit
-    (phi rounded in both), and under "highest" phi stays float32."""
+    "bfloat16" variant takes one bf16 pass of whole and delta columns, so
+    it equals "precomputed" on cache.float() under "bf16" bit for bit (phi
+    rounded in both; "default" on float32 rows is the three-pass split), and
+    under "highest" phi stays float32."""
     x, phi_mat, log_w, valid = _case(rng, "gaussian", 8)
     cache = TG.features(torch.from_numpy(x)).bfloat16()
     tv, tphi, tlw = (torch.from_numpy(a) for a in (valid, phi_mat, log_w))
-    for prec in ("default", "highest"):
+    for prec, twin_prec in (("default", "bf16"), ("highest", "highest")):
+        assert sk.ll_route("bfloat16", prec) == twin_prec
         got = sk.fused_assign(cache, tv, tphi, tlw, 5, 0, True,
                               family_name="bfloat16", ll_precision=prec)
         twin = sk.fused_assign(cache.float(), tv, tphi, tlw, 5, 0, True,
-                               ll_precision=prec)
+                               ll_precision=twin_prec)
         for g, w in zip(got, twin):
             assert torch.equal(g, w)
-    assert torch.equal(sk.ll_product(cache.float(), tphi, "default"),
+    assert torch.equal(sk.ll_product(cache.float(), tphi, "bf16"),
                        cache.float() @ tphi.bfloat16().float())
     assert torch.equal(sk.ll_product(cache.float(), tphi, "highest"),
                        cache.float() @ tphi)
