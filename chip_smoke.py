@@ -54,17 +54,21 @@ and profiles 8 steady sweeps of the flagship fit (f32 cache, under
 "default" and "highest") and of each 10M x 64-d fit with torch.profiler.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernel-a    # kernel A exact: digests and times
+    python3 chip_smoke.py --kernel-a    # kernel A: digests and times
     python3 chip_smoke.py --kernel-b    # kernel B alone: digests and times
     python3 chip_smoke.py --chain-quality   # 1M x 64-d, seeds 1-5
+    python3 chip_smoke.py --huge        # the 10M x 64-d fits alone
 
-``--kernel-a`` prints the exact route's digests and its times in each
-variant (beside "default"), the tile study's blocks and kernel D's stage
-sets; ``--kernel-b`` prints kernel B's digests and its time in each variant
+``--kernel-a`` prints the exact route's digests and kernel A's times in
+each variant under every ll_precision, each with its share of the bound,
+the tile study's blocks and kernel D's stage sets; ``--kernel-b`` prints kernel B's digests and its time in each variant
 under the three label sets (with the device time of each of its kernels);
 both one JSON line each, with whichever dpmmsubclusters_tpu_torch sits
 beside this file: a copy in another tree times that tree.
-``--chain-quality`` fits 1M x 64-d (K_true=100, no cache) at seeds 1-5
+``--huge`` runs the two 10M x 64-d fits alone and prints their ms/sweep
+and device ms/sweep by part, one JSON line (a copy in another tree times
+that tree).  ``--chain-quality`` fits 1M x 64-d (K_true=100, no cache) at
+seeds 1-5
 under "default" and "highest" and prints K, NMI, the first sweep at K=100
 and ms/sweep of each fit.
 
@@ -328,44 +332,66 @@ def check_assign(torch, sk, name: str, case: Case, smi: str,
         stat_x, lk, sk_, valid, k, stat_family))
     plain_ms = time_ms(torch, lambda: plain(False))
     f = case.phi_mat.shape[0]
-    # the function needs each point's whole columns and its label's one
-    # delta column (2 flop a term; on the tensor cores at bf16's peak under
-    # "bf16", three such products under "high", else float32's), the built
-    # rows' products and one add a statistic (float32); it reads the rows,
-    # valid, phi and log_w once and writes labels, sub-labels and the
-    # statistics
-    n_valid = int(valid.sum())
+    b = assign_bound(case, route)
+    yard_ms, yard = product_yardstick(torch, sk, case, route)
+    log(f"{name}: {ms:.3f} ms (less kernel B's time, the assign pass: "
+        f"{pass_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}; share "
+        f"{b['bound_ms'] / ms:.1%}), yardstick ({yard}) {yard_ms:.3f} ms "
+        f"(N={n}, F={f}, K={k}; {smi}); max abs err {err:.3g}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
+                library_ms=None, yardstick_ms=yard_ms, pass_ms=pass_ms)
+
+
+def assign_bound(case: Case, route: str) -> dict:
+    """The least time the card could take for kernel A's call (assign and
+    statistics pass) on ``case`` under the product ``route``: it needs each
+    point's whole columns and its label's one delta column (2 flop a term;
+    on the tensor cores at bf16's peak under "bf16", three such products
+    under "high", else float32's), the built rows' products and one add a
+    statistic (float32); it reads the rows, valid, phi and log_w once and
+    writes labels, sub-labels and the statistics."""
+    n, k, f = case.x.shape[0], case.k, case.phi_mat.shape[0]
+    n_valid = int(case.valid.sum())
     nbytes = (case.row_bytes() + n + 4 * (f * 2 * k + k) + 8 * n
               + 4 * 2 * k * f)
     product = 2.0 * n * f * (k + 1)
     rest = n * case.built + n_valid * f
     passes = {"bf16": 1, "high": 3}.get(route)
     if passes:
-        b = least_time(nbytes, passes * product, BF16_FLOP_S, rest,
-                       FP32_FLOP_S)
-    else:
-        b = least_time(nbytes, product + rest)
-    yardstick = ""
-    if ll_precision == "highest":
-        # a yardstick, not the library call: strict-fp32 SGEMM of the K
-        # whole columns alone over rows built beforehand (not timed)
-        rows = sk.feature_rows(x, case.family)
-        whole = case.phi_mat[:, :k].contiguous()
+        return least_time(nbytes, passes * product, BF16_FLOP_S, rest,
+                          FP32_FLOP_S)
+    return least_time(nbytes, product + rest)
+
+
+def product_yardstick(torch, sk, case: Case, route: str):
+    """A yardstick, not the library call (no one call computes kernel A):
+    ``(ms, what)`` of the product of the K whole columns alone over rows
+    built beforehand (not timed), by torch.matmul, never called by the
+    port: under "highest" strict-fp32 SGEMM; under "bf16" one product of
+    the rows and columns rounded to bf16; under "high" the three products
+    of their bf16 hi and lo planes (hi x lo, lo x hi, hi x hi)."""
+    rows = sk.feature_rows(case.x, case.family)
+    whole = case.phi_mat[:, :case.k].contiguous()
+    if route == "highest":
         tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            sgemm_ms = time_ms(torch, lambda: rows @ whole)
+            ms = time_ms(torch, lambda: rows @ whole)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = tf32
+        return ms, f"strict-fp32 torch.matmul of the {case.k} whole columns"
+    r_hi, p_hi = rows.bfloat16(), whole.bfloat16()
+    if route == "bf16":
         del rows
-        yardstick = (f", yardstick (strict-fp32 torch.matmul of the {k} "
-                     f"whole columns alone) {sgemm_ms:.3f} ms")
-    log(f"{name}: {ms:.3f} ms (less kernel B's time, the assign pass: "
-        f"{pass_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
-        f"{b['bound_ms']:.3f} ms ({b['bound_by']}){yardstick} (N={n}, "
-        f"F={f}, K={k}; {smi}); max abs err {err:.3g}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
-                library_ms=None, pass_ms=pass_ms)
+        return (time_ms(torch, lambda: r_hi @ p_hi),
+                f"one bf16 torch.matmul of the {case.k} whole columns")
+    r_lo = (rows - r_hi.float()).bfloat16()
+    p_lo = (whole - p_hi.float()).bfloat16()
+    del rows
+    ms = time_ms(torch, lambda: (r_hi @ p_lo, r_lo @ p_hi, r_hi @ p_hi))
+    return ms, (f"three bf16 torch.matmul of the planes of the {case.k} "
+                f"whole columns")
 
 
 def sub_ties_only(torch, sk, case: Case, labels, sub, sub_plain,
@@ -775,9 +801,11 @@ def a_digests(torch, sk, dev) -> dict:
 
 
 def kernel_a_main() -> int:
-    """``--kernel-a``: kernel A's digests, then the times of its exact
-    route (and, as a control, of "default") in each variant at the kernel
-    checks' shapes, of the tile study's full mode at each block size and of
+    """``--kernel-a``: kernel A's digests, then its times under each
+    ll_precision ("highest", "default", "bf16", "high"), with the share of
+    the bound and the device time of each of its kernels, in each variant
+    at the kernel checks' shapes (and the f32 cache at K=16 and 32, the
+    narrow passes), of the tile study's full mode at each block size and of
     kernel D's stage sets, one JSON line each, with whichever
     dpmmsubclusters_tpu_torch this directory holds (the A/B of two trees:
     copy this file into each)."""
@@ -806,6 +834,10 @@ def kernel_a_main() -> int:
     x64 = (x64 - x64.mean(0)) / x64.std(0)
     xm, _, _ = generate_mnmm_data(N_CHECK, 100, 20, 120, seed=1)
     for name, make in (
+            ("precomputed K=16", lambda: Case(torch, dev, x, "gaussian", 16,
+                                              cache="float32")),
+            ("precomputed K=32", lambda: Case(torch, dev, x, "gaussian", 32,
+                                              cache="float32")),
             ("precomputed", lambda: Case(torch, dev, x, "gaussian",
                                          K_MAX_FLAG, cache="float32")),
             ("precomputed K=256", lambda: Case(torch, dev, x, "gaussian", 256,
@@ -817,10 +849,15 @@ def kernel_a_main() -> int:
                                     cache="bfloat16").as_hybrid()),
             ("multinomial", lambda: Case(torch, dev, xm, "multinomial", 64))):
         case = make()
-        for prec in ("highest", "default"):
-            ms = time_ms(torch, lambda: sk.fused_assign(
-                *case.args(), False, **case.kw(), ll_precision=prec))
-            emit(variant=name, ll_precision=prec, ms=ms)
+        for prec in ("highest", "default", "bf16", "high"):
+            def call():
+                return sk.fused_assign(*case.args(), False, **case.kw(),
+                                       ll_precision=prec)
+            ms = time_ms(torch, call)
+            b = assign_bound(case, sk.ll_route(case.family, prec))
+            emit(variant=name, ll_precision=prec, ms=ms, **b,
+                 share=b["bound_ms"] / ms,
+                 kernels=device_ms_by_kernel(torch, call))
         del case
         free(torch)
     xs, valid, phi, log_w = kts.inputs(N_CHECK, D_FLAG, K_MAX_FLAG, dev)
@@ -1703,6 +1740,63 @@ def run_persistence(torch, x, gt, flag: dict, fused_ms: float,
     return out
 
 
+def run_huge(torch, smi: str, statistics: bool = True):
+    """The 10M x 64-d fit (benchmarks/suite.py:128-186, huge_conv, through
+    fit), full size, nothing cut: first with the rows built in the kernels
+    (the cache resolves off: its f32 layout would be 86 GB), then with the
+    hybrid cache (42.9 GB of bf16 rows beside the 2.56 GB of points); each
+    must reach K=100 at NMI >= 0.999, and each is profiled over 8 steady
+    sweeps; with ``statistics`` also ``cluster_statistics`` over the points.
+    Returns each fit's launches and its ms/sweep with its profile, by
+    variant."""
+    hybrid = {"fused_assign": "hybrid", "stats_from_labels": "gaussian"}
+    x, gt = separated_data(10_000_000, 64, 100)
+    huge = dict(k_max=256, chunk_size=16384, burnout=5, alpha=10.0,
+                track_posterior=False, merge_candidates=1024, seed=1,
+                iters=160)
+    launches, timed = {}, {}
+    r = run_fit(torch, "10M x 64-d (no cache)", x, gt, "gaussian", **huge)
+    assert r["res"].model.cfg.precompute_features is False
+    assert r["res"].k == 100 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
+    launches["gaussian"] = r["launches"]
+    timed["gaussian"] = dict(ms=r["ms"], **profile_sweeps(
+        torch, r["res"], x, "10M x 64-d (no cache)", smi))
+    if statistics:
+        huge_statistics(torch, r["res"], x, smi)
+    del r
+    free(torch)
+    r = run_fit(torch, "10M x 64-d (hybrid cache)", x, gt, hybrid,
+                precompute_features=True, feature_dtype="hybrid", **huge)
+    assert r["res"].k == 100 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
+    launches["hybrid"] = r["launches"]
+    log(f"10M x 64-d hybrid: {r['ms']:.2f} ms/sweep, cache built in "
+        f"{r['featurize_s']:.3f} s ({smi})")
+    free(torch)
+    timed["hybrid"] = dict(ms=r["ms"], **profile_sweeps(
+        torch, r["res"], x, "10M x 64-d (hybrid cache)", smi))
+    del x, gt, r
+    free(torch)
+    return launches, timed
+
+
+def huge_main() -> int:
+    """``--huge``: the two 10M x 64-d fits alone (:func:`run_huge`), one
+    JSON line of their ms/sweep and device ms/sweep by part, with whichever
+    dpmmsubclusters_tpu_torch this directory holds (the A/B of two trees:
+    copy this file into each)."""
+    import torch
+
+    from dpmmsubclusters_tpu_torch.utils import profiling
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    smi = profiling.card("cuda")
+    print(json.dumps(dict(huge=run_huge(torch, smi, statistics=False)[1],
+                          card=smi)), flush=True)
+    return 0
+
+
 def huge_statistics(torch, res, x, smi: str) -> None:
     """``cluster_statistics`` over all of a 10M-point fit's points, with
     its seconds and the peak device memory during the call."""
@@ -1998,7 +2092,7 @@ def run_distributed(torch, ref: dict, smi: str) -> dict:
 
 
 # the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
-CARD_TESTS = 123
+CARD_TESTS = 187
 
 
 def run_card_tests(smi: str) -> int:
@@ -2190,32 +2284,7 @@ def main() -> int:
     del x, gt, r
     free(torch)
 
-    # 10M x 64-d (benchmarks/suite.py:128-186, huge_conv, through fit), full
-    # size, nothing cut: first with the rows built in the kernels (the
-    # cache resolves off: its f32 layout would be 86 GB), then with the
-    # hybrid cache (42.9 GB of bf16 rows beside the 2.56 GB of points)
-    x, gt = separated_data(10_000_000, 64, 100)
-    huge = dict(k_max=256, chunk_size=16384, burnout=5, alpha=10.0,
-                track_posterior=False, merge_candidates=1024, seed=1,
-                iters=160)
-    r = run_fit(torch, "10M x 64-d (no cache)", x, gt, "gaussian", **huge)
-    assert r["res"].model.cfg.precompute_features is False
-    assert r["res"].k == 100 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
-    launches["gaussian"] = r["launches"]
-    profile_sweeps(torch, r["res"], x, "10M x 64-d (no cache)", smi)
-    huge_statistics(torch, r["res"], x, smi)
-    del r
-    free(torch)
-    r = run_fit(torch, "10M x 64-d (hybrid cache)", x, gt, hybrid,
-                precompute_features=True, feature_dtype="hybrid", **huge)
-    assert r["res"].k == 100 and r["nmi"] >= 0.999, (r["res"].k, r["nmi"])
-    launches["hybrid"] = r["launches"]
-    log(f"10M x 64-d hybrid: {r['ms']:.2f} ms/sweep, cache built in "
-        f"{r['featurize_s']:.3f} s ({smi})")
-    free(torch)
-    profile_sweeps(torch, r["res"], x, "10M x 64-d (hybrid cache)", smi)
-    del x, gt, r
-    free(torch)
+    launches.update(run_huge(torch, smi)[0])
     run_distributed(torch, flag_ref, smi)
     del flag_ref
 
@@ -2307,7 +2376,7 @@ def main() -> int:
 
 
 MODES = {"--kernel-a": kernel_a_main, "--kernel-b": kernel_b_main,
-         "--chain-quality": chain_quality_main}
+         "--chain-quality": chain_quality_main, "--huge": huge_main}
 
 if __name__ == "__main__":
     argv = sys.argv[1:]

@@ -69,9 +69,13 @@
 //    folding does not matter.  Every K takes this path: above 128 there is
 //    no separate delta product.
 //  * the noise is drawn only for columns that can win (see the fold).
-//  * with two planes a stage holds both planes of both tiles (160 KB a
-//    block at N = 256, one block an SM), a step's phi planes are still one
-//    bulk copy, and a step is three wgmma a 16 features instead of one.
+//  * with two planes a stage holds both planes of both tiles, a step's phi
+//    planes are still one bulk copy, and a step is three wgmma a 16
+//    features instead of one.  Two planes at N = 256 (K > 64: the f32
+//    cache's and the built rows' "default" at the fits' widths) take
+//    fused_assign_tc_ring.cuh instead, whose design overlaps more there;
+//    this one stays for one plane and the narrower passes, where its two
+//    blocks an SM overlap one block's argmax with the other's product.
 #pragma once
 
 #include "dpmm_kernels.cuh"
@@ -522,6 +526,16 @@ cudaError_t launch_width(Rows rows, const __nv_bfloat16* phi_t,
 
 }  // namespace
 
+namespace ring {
+// fused_assign_tc_ring.cuh: the pass for two planes at a pass width of 256
+// (K > 64), which fused_assign_tc3.cu builds.
+template <class Rows>
+cudaError_t launch(Rows rows, const float* phi, __nv_bfloat16* phi_t,
+                   const float* log_w, const int32_t* seed, int tile_off,
+                   int hard, int tile, int n, int f, int k, int32_t* labels,
+                   int32_t* sub, cudaStream_t st);
+}  // namespace ring
+
 template <int Planes, class Rows>
 cudaError_t launch_assign_tc(Rows rows, const float* phi,
                              __nv_bfloat16* phi_t, const float* log_w,
@@ -529,6 +543,11 @@ cudaError_t launch_assign_tc(Rows rows, const float* phi,
                              int tile, int n, int f, int k, int32_t* labels,
                              int32_t* sub, cudaStream_t st) {
   const int width = tc_width(k);
+  if constexpr (Planes == 2) {
+    if (width == 256)
+      return ring::launch(rows, phi, phi_t, log_w, seed, tile_off, hard, tile,
+                          n, f, k, labels, sub, st);
+  }
   const int f_pad = tc_padded(f);
   const int total_rows = tc_passes(k) * width;
   const int total = total_rows * f_pad;

@@ -488,6 +488,10 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
                 phi_mat=(phi_mat, torch.float32, (f, 2 * k)),
                 log_w=(log_w, torch.float32, (k,)),
                 seed=(seed, torch.int32, (1,)))
+    if planes == 2 and family_name in _BF16 and x.data_ptr() % 16:
+        # the three-pass split copies a bf16 cache's rows in 16-byte pieces
+        # from a 16-byte boundary on: a view that starts elsewhere is copied
+        x = x.clone()
     lib = _build.load()
     delta_t = phi_t = None
     if tensor_cores:
