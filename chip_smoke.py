@@ -110,6 +110,8 @@ SOURCES = {
     "fused_assign": "dpmmsubclusters_tpu_torch/csrc/fused_assign.cu",
     "fused_assign_tc": "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc.cu",
     "fused_assign_tc3": "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc3.cu",
+    "fused_assign_tc_tma":
+        "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc_tma.cuh",
     "stats_from_labels": "dpmmsubclusters_tpu_torch/csrc/stats_from_labels.cu",
     "build_gate": "chip_smoke.py",      # GATE_KERNEL, built by _build.py
     "column_sum": "dpmmsubclusters_tpu_torch/csrc/column_sum.cu",
@@ -171,8 +173,8 @@ def close(torch, got, want, rtol: float, atol: float) -> float:
 class Case:
     """One kernel check's inputs on the card: the rows ``x`` of a variant
     (the raw points, or with ``cache`` the Gaussian feature cache in that
-    layout: "float32", or "bfloat16" built as fit builds it), a [F, 2K]
-    phi_mat drawn by the family at random posteriors, uniform log-weights
+    layout: "float32", or "bfloat16" built as fit builds it, its rows
+    padded to a multiple of 8 values), a [F, 2K] phi_mat drawn by the family at random posteriors, uniform log-weights
     and ``valid`` (the last 1000 rows invalid).  ``raw`` keeps the points
     (a bf16 cache's case turns "hybrid" with :meth:`as_hybrid`)."""
 
@@ -244,17 +246,19 @@ class Case:
 
 def check_assign(torch, sk, name: str, case: Case, smi: str,
                  ll_precision: str = "highest") -> dict:
-    """Kernel A against its plain version at one ``ll_precision``: hard
-    labels identical except near ties, soft labels and sub-labels agreeing
-    >= 0.999, statistics within 1e-5 of their terms' magnitudes of the
-    plain float64 sums at the kernel's labels, two launches equal.  Under
-    the three-pass split ("high", and "default" on float32 rows) the
-    sub-labels must also be equal wherever the labels are, hard and soft,
-    but at near ties of the sub-label's draw (:func:`sub_ties_only`)."""
+    """Kernel A against its plain version at one ``ll_precision``: labels
+    identical except near ties (hard and soft, :func:`label_ties_only`),
+    soft labels and sub-labels agreeing >= 0.999, statistics within 1e-5 of
+    their terms' magnitudes of the plain float64 sums at the kernel's
+    labels, two launches equal.  Under the tensor cores' products ("bf16",
+    one pass, and "high", the three-pass split; "default" takes one of
+    them) the sub-labels must also be equal wherever the labels are, hard
+    and soft, but at near ties of the sub-label's draw
+    (:func:`sub_ties_only`)."""
+    route = sk.ll_route(case.family, ll_precision)
     x, valid, k = case.x, case.valid, case.k
     name = f"{name} [{ll_precision}]"
     kw = dict(case.kw(), ll_precision=ll_precision)
-    route = sk.ll_route(case.family, ll_precision)
 
     def run(hard):
         return sk.fused_assign(*case.args(), hard, **kw)
@@ -265,34 +269,26 @@ def check_assign(torch, sk, name: str, case: Case, smi: str,
     lk, sk_, _ = run(True)
     lp, sp, _ = plain(True)
     torch.cuda.synchronize()
-    diff = torch.nonzero(lk != lp)[:, 0]
-    if diff.numel():
-        # a flip is only allowed where the plain logits tie to within the
-        # float32 rounding of an F-term dot product in another order (under
-        # "bf16" and "high" both sides round their operands to bf16 planes
-        # alike, so there too only the order of the float32 sums differs)
-        rows = sk.feature_rows(x[diff], case.family)
-        ll = sk.ll_product(rows, case.phi_mat[:, :k], route) + case.log_w
-        top2 = torch.topk(ll, 2, dim=-1).values
-        gap = (top2[:, 0] - top2[:, 1]).abs()
-        bound = 1e-4 * top2[:, 0].abs().clamp(min=1.0)
-        if bool((gap > bound).any()):
-            raise AssertionError(f"{name} hard labels differ beyond ties: "
-                                 f"{int((gap > bound).sum())} rows")
+    flips = label_ties_only(torch, sk, case, lk, lp, route, True)
     n = x.shape[0]
-    log(f"{name} hard: {n - diff.numel()}/{n} labels identical "
-        f"({diff.numel()} near-tie flips)")
+    log(f"{name} hard: {n - flips}/{n} labels identical ({flips} near-tie "
+        f"flips)")
     ties = []
-    if route == "high":
-        ties.append(sub_ties_only(torch, sk, case, lk, sk_, sp, lk == lp))
+    if route != "highest":
+        ties.append(sub_ties_only(torch, sk, case, lk, sk_, sp, lk == lp,
+                                  route))
     lk, sk_, stk = run(False)
     lp, sp, _ = plain(False)
     agree_l = float((lk == lp).float().mean())
     agree_s = float((sk_ == sp).float().mean())
     log(f"{name} soft: labels agree {agree_l:.6f}, sub-labels {agree_s:.6f}")
     assert agree_l >= 0.999 and agree_s >= 0.999, (name, agree_l, agree_s)
-    if route == "high":
-        ties.append(sub_ties_only(torch, sk, case, lk, sk_, sp, lk == lp))
+    flips = label_ties_only(torch, sk, case, lk, lp, route, False)
+    log(f"{name} soft: {flips} label flips, each at a near tie of the noisy "
+        f"logits")
+    if route != "highest":
+        ties.append(sub_ties_only(torch, sk, case, lk, sk_, sp, lk == lp,
+                                  route))
         log(f"{name}: sub-labels equal to the plain version's wherever the "
             f"labels are, but {ties} (hard, soft) near ties of the "
             f"sub-label's draw")
@@ -394,20 +390,52 @@ def product_yardstick(torch, sk, case: Case, route: str):
                 f"whole columns")
 
 
+def label_ties_only(torch, sk, case: Case, labels, labels_plain, route: str,
+                    hard: bool) -> int:
+    """Kernel A's labels against another kernel's or the plain version's of
+    the same product ``route``: a label may differ only where the top two
+    logits of the plain product (with the label noise, soft) tie to within
+    1e-4 of the larger, the float32 rounding of an F-term dot product in
+    another order (under "bf16" and "high" both sides round their operands
+    to bf16 planes alike, so there too only the order of the float32 sums
+    differs).  Returns the count of flips."""
+    k = case.k
+    diff = torch.nonzero(labels != labels_plain)[:, 0]
+    if diff.numel():
+        rows = sk.feature_rows(case.x[diff], case.family)
+        ll = sk.ll_product(rows, case.phi_mat[:, :k], route) + case.log_w
+        if not hard:
+            g = diff.long()
+            ll = ll + sk.gumbel_noise(sk.tile_seeds(SEED, g, HASH_TILE),
+                                      g % HASH_TILE, k)
+        top2 = torch.topk(ll, 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        bad = gap > 1e-4 * top2[:, 0].abs().clamp(min=1.0)
+        assert not bool(bad.any()), (
+            f"labels differ beyond near ties at {int(bad.sum())} points "
+            f"({'hard' if hard else 'soft'}, {route})")
+    return int(diff.numel())
+
+
 def sub_ties_only(torch, sk, case: Case, labels, sub, sub_plain,
-                  same) -> int:
+                  same, route: str = "high") -> int:
     """Kernel A's sub-labels under the three-pass split against the plain
     version's at the points whose labels are equal (``same``): where they
     differ, the draw ``delta + (G_r - G_l) + 1e-30`` must lie within 2e-5
     of ``|row| . |delta column|`` of 0 (float64 here): both take the split,
-    1.15e-5 of the terms off the float32 delta, in other orders.  Returns
-    the count of such ties."""
+    1.15e-5 of the terms off the float32 delta, in other orders.  Under
+    one bf16 pass (``route`` "bf16") both sides' delta is the product of
+    the bf16-rounded row and column, in other orders, so the draw is taken
+    from those.  Returns the count of such ties."""
     idx = torch.nonzero(same & (sub != sub_plain))[:, 0]
     if not idx.numel():
         return 0
     k = case.k
-    rows = sk.feature_rows(case.x[idx], case.family).double()
-    col = case.phi_mat[:, k:].double().T[labels[idx].long()]
+    rows = sk.feature_rows(case.x[idx], case.family)
+    col = case.phi_mat[:, k:].T[labels[idx].long()]
+    if route == "bf16":
+        rows, col = rows.bfloat16(), col.bfloat16()
+    rows, col = rows.double(), col.double()
     delta = (rows * col).sum(1)
     scale = (rows.abs() * col.abs()).sum(1)
     g = idx.long()
@@ -805,10 +833,13 @@ def kernel_a_main() -> int:
     ll_precision ("highest", "default", "bf16", "high"), with the share of
     the bound and the device time of each of its kernels, in each variant
     at the kernel checks' shapes (and the f32 cache at K=16 and 32, the
-    narrow passes), of the tile study's full mode at each block size and of
-    kernel D's stage sets, one JSON line each, with whichever
-    dpmmsubclusters_tpu_torch this directory holds (the A/B of two trees:
-    copy this file into each)."""
+    narrow passes; every other one-bf16-pass shape of the bf16 caches,
+    K=16, 32, 64 and 256 of the flagship's and K=64 and 128 of the 10M
+    rows', under "default" alone: one bf16 pass there; and the exact route
+    over the flagship's bf16 cache unpadded, beside its padded rows), of
+    the tile study's full mode at each block size and of kernel D's stage sets, one JSON
+    line each, with whichever dpmmsubclusters_tpu_torch this directory
+    holds (the A/B of two trees: copy this file into each)."""
     import torch
 
     from dpmmsubclusters_tpu_torch.benchmarks import kernel_ablate as kab
@@ -833,7 +864,8 @@ def kernel_a_main() -> int:
     x64, _ = separated_data(N_CHECK, 64, 100)
     x64 = (x64 - x64.mean(0)) / x64.std(0)
     xm, _, _ = generate_mnmm_data(N_CHECK, 100, 20, 120, seed=1)
-    for name, make in (
+    every = ("highest", "default", "bf16", "high")
+    shapes = [(name, make, every) for name, make in (
             ("precomputed K=16", lambda: Case(torch, dev, x, "gaussian", 16,
                                               cache="float32")),
             ("precomputed K=32", lambda: Case(torch, dev, x, "gaussian", 32,
@@ -847,16 +879,37 @@ def kernel_a_main() -> int:
             ("gaussian", lambda: Case(torch, dev, x64, "gaussian", 256)),
             ("hybrid", lambda: Case(torch, dev, x64, "gaussian", 256,
                                     cache="bfloat16").as_hybrid()),
-            ("multinomial", lambda: Case(torch, dev, xm, "multinomial", 64))):
+            ("multinomial", lambda: Case(torch, dev, xm, "multinomial", 64)))]
+    for k in (16, 32, 64, 256):
+        shapes.append((f"bfloat16 K={k}", lambda k=k: Case(
+            torch, dev, x, "gaussian", k, cache="bfloat16"), ("default",)))
+    for k in (64, 128):
+        shapes.append((f"hybrid K={k}", lambda k=k: Case(
+            torch, dev, x64, "gaussian", k, cache="bfloat16").as_hybrid(),
+            ("default",)))
+    for name, make, precisions in shapes:
         case = make()
-        for prec in ("highest", "default", "bf16", "high"):
+        for prec in precisions:
+            route = sk.ll_route(case.family, prec)
+
             def call():
                 return sk.fused_assign(*case.args(), False, **case.kw(),
                                        ll_precision=prec)
             ms = time_ms(torch, call)
-            b = assign_bound(case, sk.ll_route(case.family, prec))
+            b = assign_bound(case, route)
             emit(variant=name, ll_precision=prec, ms=ms, **b,
                  share=b["bound_ms"] / ms,
+                 kernels=device_ms_by_kernel(torch, call))
+        if name == "bfloat16":
+            # the exact route over the same values unpadded: what the
+            # port's row pitch costs it
+            case.x = case.x.contiguous()
+
+            def call():
+                return sk.fused_assign(*case.args(), False, **case.kw(),
+                                       ll_precision="highest")
+            emit(variant="bfloat16 unpadded", ll_precision="highest",
+                 ms=time_ms(torch, call),
                  kernels=device_ms_by_kernel(torch, call))
         del case
         free(torch)
@@ -955,25 +1008,40 @@ def bf16_twin_gate(torch, sk, case: Case) -> None:
     ones on cache.float(): labels, sub-labels and statistics equal bit for
     bit under "highest", and under "default" against "precomputed" under
     "bf16", the route a bf16 cache takes (the upcast is exact and feeds the
-    same FMA chains; a bf16 value rounds to itself).  The "hybrid"
-    labels and sub-labels equal them too, and its statistics equal kernel
-    B "gaussian" on the raw points at those labels."""
+    same FMA chains; a bf16 value rounds to itself), where both take the
+    same kernel (K <= 64).  Above K = 64 a bf16 cache takes
+    fused_assign_tc_tma.cuh's kernel, whose float32 sums run in another
+    order than the float32 rows' kernel: there the labels must be equal
+    but at near ties and the sub-labels equal wherever the labels are but
+    at near ties of their draw (:func:`tie_flips_only`), and the
+    statistics are kernel B's at the kernel's labels.  The "hybrid" labels
+    and sub-labels equal the "bfloat16" ones, and its statistics equal
+    kernel B "gaussian" on the raw points at those labels."""
     hyb = case.as_hybrid()
     twin_x = case.x.float()
+    flips = []
     for prec, hard in ((p, h) for p in ("highest", "default")
                        for h in (True, False)):
         # a bf16 cache takes "default" as one bf16 pass of whole and delta
         # columns: the twin on cache.float() is "bf16"
+        route = sk.ll_route("bfloat16", prec)
         twin = sk.fused_assign(twin_x, *case.args()[1:], hard, tile=HASH_TILE,
-                               ll_precision=sk.ll_route("bfloat16", prec))
+                               ll_precision=route)
         got = sk.fused_assign(*case.args(), hard, **case.kw(),
                               ll_precision=prec)
-        for what, a, b in zip(("labels", "sub-labels", "stats"), got, twin):
-            assert torch.equal(a, b), (f"kernel A bfloat16 twins differ "
-                                       f"under {prec}: {what}")
+        if route == "bf16" and case.k > 64:
+            flips.append(tie_flips_only(torch, sk, case, got, twin, hard))
+            assert torch.equal(got[2], sk.stats_from_labels(
+                case.x, got[0], got[1], case.valid, case.k, "bfloat16")), \
+                "kernel A bfloat16 statistics differ from kernel B's"
+        else:
+            for what, a, b in zip(("labels", "sub-labels", "stats"), got,
+                                  twin):
+                assert torch.equal(a, b), (f"kernel A bfloat16 twins differ "
+                                           f"under {prec}: {what}")
         hy = sk.fused_assign(*hyb.args(), hard, **hyb.kw(), ll_precision=prec)
-        assert torch.equal(hy[0], twin[0]) and torch.equal(hy[1], twin[1]), \
-            f"kernel A hybrid labels differ from the f32 twin's under {prec}"
+        assert torch.equal(hy[0], got[0]) and torch.equal(hy[1], got[1]), \
+            f"kernel A hybrid labels differ from bfloat16's under {prec}"
         assert torch.equal(hy[2], sk.stats_from_labels(
             case.raw, hy[0], hy[1], case.valid, case.k, "gaussian")), \
             "kernel A hybrid statistics differ from kernel B gaussian"
@@ -983,10 +1051,25 @@ def bf16_twin_gate(torch, sk, case: Case) -> None:
         sk.stats_from_labels(twin_x, got[0], got[1], case.valid, case.k)), \
         "kernel B bfloat16 twins differ"
     log(f"bf16 twin gate: bfloat16 == precomputed on cache.float() bit for "
-        f"bit for A (hard, soft; highest, default) and B; hybrid labels "
-        f"equal, its statistics "
-        f"== B gaussian (N={case.x.shape[0]}, F={case.x.shape[1]}, "
-        f"K={case.k})")
+        f"bit for A (hard, soft; highest" + (
+            f"; default but {flips} (hard, soft) near-tie label and "
+            f"sub-label flips, the kernels' float32 sums in other orders"
+            if flips else ", default") + f") and B; hybrid labels equal "
+        f"bfloat16's, its statistics == B gaussian (N={case.x.shape[0]}, "
+        f"F={case.x.shape[1]}, K={case.k})")
+
+
+def tie_flips_only(torch, sk, case: Case, got, want, hard: bool) -> tuple:
+    """Kernel A's labels and sub-labels ``got`` against ``want`` from
+    another kernel of the same product ("bf16", its float32 sums in another
+    order): a label may differ only where the top two logits (with the
+    label noise, soft) of the plain product tie to within 1e-4 of the
+    larger; a sub-label, where the labels are equal, only at a near tie of
+    its draw (:func:`sub_ties_only`).  Returns the two counts."""
+    flips = label_ties_only(torch, sk, case, got[0], want[0], "bf16", hard)
+    same = got[0] == want[0]
+    return flips, sub_ties_only(torch, sk, case, got[0], got[1], want[1],
+                                same, "bf16")
 
 
 def check_bf16(torch, sk, out: dict, x, k: int, smi: str, main: bool):
@@ -1013,6 +1096,16 @@ def check_bf16(torch, sk, out: dict, x, k: int, smi: str, main: bool):
                       "fused_assign[hybrid]" + ("" if not main else tag),
                       "kernel A hybrid" + tag, case.as_hybrid(), smi)
     del case
+    torch.cuda.empty_cache()
+    # the narrower passes (K <= 64, the fits' early tiers) keep
+    # fused_assign_tc.cuh's kernel: the variant the report keeps at K=64
+    variant = "bfloat16" if main else "hybrid"
+    narrow = Case(torch, x.device, x, "gaussian", 64, cache="bfloat16")
+    if not main:
+        narrow = narrow.as_hybrid()
+    out[f"fused_assign[{variant}] K=64"] = check_assign(
+        torch, sk, f"kernel A {variant} F={f} K=64", narrow, smi, "default")
+    del narrow
     torch.cuda.empty_cache()
 
 
@@ -1491,6 +1584,9 @@ def run_fit(torch, name: str, x, gt, variant, **kw) -> dict:
                                                                   counts)
     assert sum(tc.values()) == tc[a_variant], (name, tc)
     counts["tensor_core"] = tc
+    # ... and above K = 64 over a bf16 cache, the kernel of
+    # fused_assign_tc_tma.cuh
+    counts["tma"] = dict(sk.fused_assign.tma_launches)
     nmi = dpmm.nmi(gt, res.labels)
     ms_sweep = float(np.median(res.history.times[-40:])) * 1e3
     cache = (f", cache ({res.model.cfg.feature_dtype}) built in "
@@ -2092,7 +2188,7 @@ def run_distributed(torch, ref: dict, smi: str) -> dict:
 
 
 # the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
-CARD_TESTS = 187
+CARD_TESTS = 210
 
 
 def run_card_tests(smi: str) -> int:
@@ -2304,8 +2400,25 @@ def main() -> int:
                 # the fits' kernel A: the tensor-core assign pass
                 assert launches[variant]["tensor_core"][variant] == n_launch
                 if sk.ll_route(variant, "default") == "bf16":
-                    what += ", ll_precision default: one bf16 pass"
-                    source = SOURCES["fused_assign_tc"]
+                    # over a bf16 cache: K > 64 in fused_assign_tc_tma.cuh,
+                    # the early tiers (K <= 64) in fused_assign_tc.cuh
+                    n_tma = launches[variant]["tma"][variant]
+                    assert n_tma > 0, (variant, "the new kernel did not run",
+                                       launches[variant])
+                    if n_launch > n_tma:
+                        report["kernels"].append({
+                            "name": f"{name}[{variant}] K<=64",
+                            "route": "cuda",
+                            "source": SOURCES["fused_assign_tc"],
+                            "replaces": f"{REPLACES[name]} ({what}, "
+                                        f"ll_precision default: one bf16 "
+                                        f"pass, pass width <= 128)",
+                            "launches": n_launch - n_tma,
+                            **kernels[f"{name}[{variant}] K=64"]})
+                    what += (", ll_precision default: one bf16 pass, pass "
+                             "width 256")
+                    source = SOURCES["fused_assign_tc_tma"]
+                    n_launch = n_tma
                 else:
                     what += (", ll_precision default: the three-pass bf16 "
                              "split")

@@ -26,6 +26,7 @@ from .io.checkpoint import (jax_key, load_checkpoint,
                             load_checkpoint_distributed, restore_generator,
                             save_checkpoint, save_checkpoint_distributed,
                             seed_from_key)
+from .ops import sweep_kernels
 from .parallel.distributed import RowLayout, row_layout
 from .priors import GAUSSIAN, MULTINOMIAL
 from .sampler.driver import (DPMMEngine, DPMMState, IterStats, desired_tier,
@@ -36,17 +37,19 @@ _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
 
 
 def _cache_row_bytes(fam, cfg: DPMMConfig, d: int) -> int:
-    """Bytes per point of the unpadded feature cache in its layout: F x 4
-    (float32), F x 2 (bfloat16), F x 2 + D x 4 (hybrid: the bf16 cache and
-    the raw points beside it)."""
+    """Bytes per point of the feature cache in its layout: F x 4 (float32),
+    ld x 2 (bfloat16: its rows ``ld = sweep_kernels.bf16_row_stride(F)``
+    values apart), ld x 2 + D x 4 (hybrid: the bf16 cache and the raw points
+    beside it)."""
     f = fam.feature_dim(d)
-    return {"float32": 4 * f, "bfloat16": 2 * f,
-            "hybrid": 2 * f + 4 * d}[cfg.feature_dtype]
+    ld = sweep_kernels.bf16_row_stride(f)
+    return {"float32": 4 * f, "bfloat16": 2 * ld,
+            "hybrid": 2 * ld + 4 * d}[cfg.feature_dtype]
 
 
 def _resolve_precompute(fam, cfg: DPMMConfig, n: int, d: int) -> DPMMConfig:
     """Resolve ``precompute_features`` (None = auto: on for Gaussian data
-    when the unpadded cache, in ``feature_dtype``'s layout, fits
+    when the cache, in ``feature_dtype``'s layout, fits
     ``feature_cache_bytes``).  An explicit True builds the cache for either
     family; without it the kernels build the feature rows from the raw
     points and ``feature_dtype`` has no effect."""

@@ -123,19 +123,21 @@ struct BuiltRows {
 };
 
 // Bf16Rows, the "bfloat16" and "hybrid" variants: rows of the bf16 feature
-// cache [N, F] (unpadded; 2-byte loads need no alignment).  The upcast is
-// exact, so a bf16 row feeds the same FMA chain as the f32 cache holding
-// the same values: on cache.float() the "precomputed" variant gives the
-// same bits.
+// cache [N, F], ``ld`` values apart (the port builds it with ld a multiple
+// of 8, zeros past F, so that the copy engine can take its rows; 2-byte
+// loads take any ld).  The upcast is exact, so a bf16 row feeds the same
+// FMA chain as the f32 cache holding the same values: on cache.float() the
+// "precomputed" variant gives the same bits.
 struct Bf16Rows {
   const __nv_bfloat16* feat;
   int f;
+  int ld;
   struct Col {
     int c;
   };
   __device__ __forceinline__ Col col(int c) const { return {c}; }
   __device__ __forceinline__ float at(Col c, int p) const {
-    return __bfloat162float(__ldg(feat + static_cast<size_t>(p) * f + c.c));
+    return __bfloat162float(__ldg(feat + static_cast<size_t>(p) * ld + c.c));
   }
 };
 

@@ -88,7 +88,7 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t bf16_bits(const Bf16Rows& rows,
                                               Bf16Rows::Col c, int p) {
   return __ldg(reinterpret_cast<const unsigned short*>(rows.feat) +
-               static_cast<size_t>(p) * rows.f + c.c);
+               static_cast<size_t>(p) * rows.ld + c.c);
 }
 
 // Lets ``Kernel`` take ``bytes`` of dynamic shared memory on the current

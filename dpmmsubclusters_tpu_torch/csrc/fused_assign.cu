@@ -432,10 +432,12 @@ extern "C" int dpmm_fused_assign(const float* rows, const int32_t* pairs,
                           k, warps, labels, sub, partial, stats, st);
 }
 
-// feat: the bf16 cache [n, f].  raw null: "bfloat16", the statistics come
-// from the same rows.  raw [n, d] with the Gaussian column map pairs [f]:
-// "hybrid", the statistics come from the rows built from raw.
-extern "C" int dpmm_fused_assign_bf16(const void* feat, const float* raw,
+// feat: the bf16 cache [n, f], rows ``ld`` values apart.  raw null:
+// "bfloat16", the statistics come from the same rows.  raw [n, d] with the
+// Gaussian column map pairs [f]: "hybrid", the statistics come from the rows
+// built from raw.
+extern "C" int dpmm_fused_assign_bf16(const void* feat, int ld,
+                                      const float* raw,
                                       const int32_t* pairs, int d,
                                       const uint8_t* valid, const float* phi,
                                       const float* delta_t, void* phi_t,
@@ -447,7 +449,7 @@ extern "C" int dpmm_fused_assign_bf16(const void* feat, const float* raw,
                                       float* stats, void* stream) {
   using namespace dpmm;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Bf16Rows cache{static_cast<const __nv_bfloat16*>(feat), f};
+  const Bf16Rows cache{static_cast<const __nv_bfloat16*>(feat), f, ld};
   if (raw != nullptr)
     return assign_and_stats(cache, BuiltRows{raw, pairs, d}, valid, phi,
                             delta_t, phi_t, precision, log_w, seed, tile_off,

@@ -1,9 +1,10 @@
 // Kernel A's assign pass on the tensor cores, one bf16 pass (ll_precision
 // "bf16", and "default" on a bf16 cache): the instantiations of
-// fused_assign_tc.cuh with one
-// plane, which holds the kernel and its note.  The three-pass split
-// ("high") is fused_assign_tc3.cu, so the two build side by side.
-#include "fused_assign_tc.cuh"
+// fused_assign_tc.cuh with one plane, which holds the kernel and its note;
+// over a bf16 cache at a pass width of 256 they launch
+// fused_assign_tc_tma.cuh's kernel.  The three-pass split ("high") is
+// fused_assign_tc3.cu, so the two build side by side.
+#include "fused_assign_tc_tma.cuh"
 
 namespace dpmm {
 DPMM_TC_INSTANTIATE_ALL(1);

@@ -73,9 +73,11 @@
 //    planes are still one bulk copy, and a step is three wgmma a 16
 //    features instead of one.  Two planes at N = 256 (K > 64: the f32
 //    cache's and the built rows' "default" at the fits' widths) take
-//    fused_assign_tc_ring.cuh instead, whose design overlaps more there;
-//    this one stays for one plane and the narrower passes, where its two
-//    blocks an SM overlap one block's argmax with the other's product.
+//    fused_assign_tc_ring.cuh instead, whose design overlaps more there,
+//    and one plane over a bf16 cache at N = 256 takes
+//    fused_assign_tc_tma.cuh, whose rows need no staging; this one stays
+//    for the narrower passes and for one plane over float32 rows, where its
+//    two blocks an SM overlap one block's argmax with the other's product.
 #pragma once
 
 #include "dpmm_kernels.cuh"
@@ -536,6 +538,15 @@ cudaError_t launch(Rows rows, const float* phi, __nv_bfloat16* phi_t,
                    int32_t* sub, cudaStream_t st);
 }  // namespace ring
 
+namespace tma {
+// fused_assign_tc_tma.cuh: one plane over a bf16 cache at a pass width of
+// 256 (K > 64), which fused_assign_tc.cu builds.
+cudaError_t launch(Bf16Rows rows, const float* phi, __nv_bfloat16* phi_t,
+                   const float* log_w, const int32_t* seed, int tile_off,
+                   int hard, int tile, int n, int f, int k, int32_t* labels,
+                   int32_t* sub, cudaStream_t st);
+}  // namespace tma
+
 template <int Planes, class Rows>
 cudaError_t launch_assign_tc(Rows rows, const float* phi,
                              __nv_bfloat16* phi_t, const float* log_w,
@@ -547,6 +558,11 @@ cudaError_t launch_assign_tc(Rows rows, const float* phi,
     if (width == 256)
       return ring::launch(rows, phi, phi_t, log_w, seed, tile_off, hard, tile,
                           n, f, k, labels, sub, st);
+  }
+  if constexpr (Planes == 1 && std::is_same<Rows, Bf16Rows>::value) {
+    if (width == 256)
+      return tma::launch(rows, phi, phi_t, log_w, seed, tile_off, hard, tile,
+                         n, f, k, labels, sub, st);
   }
   const int f_pad = tc_padded(f);
   const int total_rows = tc_passes(k) * width;
@@ -560,8 +576,12 @@ cudaError_t launch_assign_tc(Rows rows, const float* phi,
                                  tile, n, f, k, labels, sub, st)
   if (width == 32) DPMM_TC(32);
   if (width == 64) DPMM_TC(64);
-  if (width == 128) DPMM_TC(128);
-  DPMM_TC(256);
+  if constexpr (Planes == 1 && std::is_same<Rows, Bf16Rows>::value) {
+    DPMM_TC(128);  // width 256 went to tma::launch above
+  } else {
+    if (width == 128) DPMM_TC(128);
+    DPMM_TC(256);
+  }
 #undef DPMM_TC
 }
 

@@ -76,7 +76,7 @@
 //    of zeros, nothing written) so that both blocks take part in every
 //    barrier, and a producer leaves only after every consumer of the
 //    cluster has released its last stages;
-//  * the noise is drawn only for columns that can win (see the fold).  The
+//  * the noise is drawn only for columns that can win (fold_pass).  The
 //    noise of column j depends only on j and the row's global index, and a
 //    column wins only by jnp.argmax's rule (larger value, then smaller
 //    column), so neither the order of folding nor the tile a block takes
@@ -348,11 +348,11 @@ __device__ __forceinline__ void produce(const TcGrid& grid, const Rows& rows,
         const int gr = row0 + pt;
         if (gr < n) {
           const char* start = reinterpret_cast<const char*>(
-              rows.feat + static_cast<size_t>(gr) * rows.f + grid.f0(g));
+              rows.feat + static_cast<size_t>(gr) * rows.ld + grid.f0(g));
           const char* a0 = reinterpret_cast<const char*>(
               reinterpret_cast<uintptr_t>(start) & ~uintptr_t{15});
           const char* end = reinterpret_cast<const char*>(
-              rows.feat + static_cast<size_t>(n) * rows.f);
+              rows.feat + static_cast<size_t>(n - 1) * rows.ld + rows.f);
           const int len = min(kTcDepth, rows.f - grid.f0(g)) * 2;
           const int pieces = static_cast<int>((start + len - a0 + 15) >> 4);
           for (int j = 0; j < pieces; ++j) {
@@ -462,9 +462,9 @@ __device__ __forceinline__ void stage_rows(const TcGrid& grid,
       // row's slice into its first 16 bytes; bf16 to float is its 16 bits
       // above 16 zeros; zeros past N and F
       const __nv_bfloat16* p =
-          rows.feat + static_cast<size_t>(row0 + rw) * rows.f + grid.f0(q);
+          rows.feat + static_cast<size_t>(row0 + rw) * rows.ld + grid.f0(q);
 #pragma unroll
-      for (int i = 0; i < kTcConsumerRows; ++i, p += rows.f) {
+      for (int i = 0; i < kTcConsumerRows; ++i, p += rows.ld) {
         const int off = reinterpret_cast<uintptr_t>(p) & 15;
         const unsigned char* v =
             buf + (rw + i) * kTcBf16Pitch + off + 4 * lane;
@@ -494,6 +494,116 @@ __device__ __forceinline__ void stage_rows(const TcGrid& grid,
     if (lane == 0) mbar_arrive(grid.raw_empty(b));
   }
   fence_async_proxy();
+}
+
+// Fold one pass of N columns into the running Gumbel argmax of a consumer
+// thread's two rows (best[h] for row first_row + 8 h).  ``acc`` holds the
+// m64nN accumulators of the pass: the thread's whole columns, then their
+// delta columns N / 4 on; the whole columns' sums become their logits.  The
+// noise lies in [-3.32, 16.64] (u in [1e-12, 1 - 2^-24]), so a column whose
+// logit is 24 below the largest of the row in this pass cannot win: its
+// noise is not drawn.  Without noise (hard) only a largest logit can win.
+// Where the largest logit is infinite or above 1e6 (24 nears float32's
+// spacing there) every column is drawn.  The kernels of both designs
+// (this ring and fused_assign_tc_tma.cuh) fold through here.
+template <int N>
+__device__ __forceinline__ void fold_pass(float (&acc)[N / 2],
+                                          Best (&best)[2], int pass,
+                                          int first_row, int lane,
+                                          const float* __restrict__ log_w,
+                                          uint32_t seed, int tile_off,
+                                          int hard, int tile, int k) {
+  const int col0 = pass * (N / 2) + 2 * (lane & 3);
+  // the logits of the thread's columns, both rows at once
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + 8 * j + e;
+      const float lw = col < k ? __ldg(log_w + col) : 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float l = acc[4 * j + 2 * h + e] + lw;
+        acc[4 * j + 2 * h + e] = isnan(l) || col >= k ? -INFINITY : l;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = first_row + 8 * h;
+    const uint32_t row_seed =
+        tile_seed(seed, static_cast<uint32_t>(tile_off) +
+                            static_cast<uint32_t>(row / tile));
+    const uint32_t rit = static_cast<uint32_t>(row % tile);
+    float top = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) top = fmaxf(top, acc[4 * j + 2 * h + e]);
+    }
+    // the row's largest over its quad
+    top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, 1));
+    top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, 2));
+    const float least = hard                 ? top
+                        : fabsf(top) < 1e6f ? top - 24.0f
+                                            : -INFINITY;
+    // two columns at a time: where any lane of the warp has one that can
+    // win, both noises are drawn side by side and kept where they count
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      bool any = false;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        any |= col0 + 8 * j + e < k && acc[4 * j + 2 * h + e] >= least;
+      if (!__any_sync(0xffffffffu, any)) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + 8 * j + e;
+        const float l = acc[4 * j + 2 * h + e];
+        // the noise is finite: zeroing it (hard) is not adding it, and
+        // added to -inf it changes nothing
+        const float noise =
+            hard ? 0.0f
+                 : gumbel(row_seed, rit * static_cast<uint32_t>(k) +
+                                        static_cast<uint32_t>(col));
+        const float v = (hard || l == -INFINITY) ? l : l + noise;
+        if (col < k && l >= least && better(v, col, best[h].v, best[h].j))
+          best[h] = {v, col, acc[4 * j + 2 * h + e + N / 4]};
+      }
+    }
+  }
+}
+
+// A consumer thread's two rows' best over their quads, then each row's
+// label and sub-label (written by the quad's first lane; rows past n are
+// not written).
+__device__ __forceinline__ void write_labels(Best (&best)[2], int first_row,
+                                             int lane, uint32_t seed,
+                                             int tile_off, int tile, int n,
+                                             int32_t* __restrict__ labels,
+                                             int32_t* __restrict__ sub) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const Best o = {__shfl_xor_sync(0xffffffffu, best[h].v, off),
+                      __shfl_xor_sync(0xffffffffu, best[h].j, off),
+                      __shfl_xor_sync(0xffffffffu, best[h].d, off)};
+      if (better(o.v, o.j, best[h].v, best[h].j)) best[h] = o;
+    }
+    const int row = first_row + 8 * h;
+    if ((lane & 3) == 0 && row < n) {
+      const uint32_t salt =
+          tile_seed(seed, static_cast<uint32_t>(tile_off) +
+                              static_cast<uint32_t>(row / tile)) ^
+          0xA5A5A5A5u;
+      const uint32_t rit = static_cast<uint32_t>(row % tile);
+      const float g_l = gumbel(salt, rit * 2u);
+      const float g_r = gumbel(salt, rit * 2u + 1u);
+      labels[row] = best[h].j;
+      sub[row] = (best[h].d + (g_r - g_l) + 1e-30f > 0.0f) ? 1 : 0;
+    }
+  }
 }
 
 // A consumer warpgroup: the product of its 64 rows of each tile with every
@@ -571,107 +681,11 @@ __device__ __forceinline__ void consume(const TcGrid& grid, const Rows& rows,
       wgmma_wait<0>();
       release(g - 1);
 
-      // Fold this pass's whole columns into the running Gumbel argmax.  The
-      // noise lies in [-3.32, 16.64] (u in [1e-12, 1 - 2^-24]), so a column
-      // whose logit is 24 below the largest of the row in this pass cannot
-      // win: its noise is not drawn.  Without noise (hard) only a
-      // largest logit can win.  Where the largest logit is infinite or
-      // above 1e6 (24 nears float32's spacing there) every column is drawn.
-      const int col0 = pass * (N / 2) + 2 * (lane & 3);
-      // the logits of the thread's columns, both rows at once
-#pragma unroll
-      for (int j = 0; j < N / 16; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = col0 + 8 * j + e;
-          const float lw = col < k ? __ldg(log_w + col) : 0.0f;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float l = acc[4 * j + 2 * h + e] + lw;
-            acc[4 * j + 2 * h + e] =
-                isnan(l) || col >= k ? -INFINITY : l;
-          }
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = first_row + 8 * h;
-        const uint32_t row_seed =
-            tile_seed(seed, static_cast<uint32_t>(tile_off) +
-                                static_cast<uint32_t>(row / tile));
-        const uint32_t rit = static_cast<uint32_t>(row % tile);
-        float top = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < N / 16; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            top = fmaxf(top, acc[4 * j + 2 * h + e]);
-        }
-        // the row's largest over its quad
-        top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, 1));
-        top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, 2));
-        const float least = hard                 ? top
-                            : fabsf(top) < 1e6f ? top - 24.0f
-                                                : -INFINITY;
-        // two columns at a time: where any lane of the warp has one that
-        // can win, both noises are drawn side by side and kept where they
-        // count
-        constexpr int kGroup = 1;
-#pragma unroll
-        for (int j0 = 0; j0 < N / 16; j0 += kGroup) {
-          bool any = false;
-#pragma unroll
-          for (int j = j0; j < j0 + kGroup; ++j) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              any |= col0 + 8 * j + e < k && acc[4 * j + 2 * h + e] >= least;
-          }
-          if (!__any_sync(0xffffffffu, any)) continue;
-#pragma unroll
-          for (int j = j0; j < j0 + kGroup; ++j) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = col0 + 8 * j + e;
-              const float l = acc[4 * j + 2 * h + e];
-              // the noise is finite: zeroing it (hard) is not adding it,
-              // and added to -inf it changes nothing
-              const float noise =
-                  hard ? 0.0f
-                       : gumbel(row_seed, rit * static_cast<uint32_t>(k) +
-                                              static_cast<uint32_t>(col));
-              const float v = (hard || l == -INFINITY) ? l : l + noise;
-              if (col < k && l >= least && better(v, col, best[h].v,
-                                                  best[h].j))
-                best[h] = {v, col, acc[4 * j + 2 * h + e + N / 4]};
-            }
-          }
-        }
-      }
+      fold_pass<N>(acc, best, pass, first_row, lane, log_w, seed, tile_off,
+                   hard, tile, k);
     }
-
-    // a row's best over its quad, then its label and sub-label
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const Best o = {__shfl_xor_sync(0xffffffffu, best[h].v, off),
-                        __shfl_xor_sync(0xffffffffu, best[h].j, off),
-                        __shfl_xor_sync(0xffffffffu, best[h].d, off)};
-        if (better(o.v, o.j, best[h].v, best[h].j)) best[h] = o;
-      }
-      const int row = first_row + 8 * h;
-      if ((lane & 3) == 0 && row < n) {
-        const uint32_t salt =
-            tile_seed(seed, static_cast<uint32_t>(tile_off) +
-                                static_cast<uint32_t>(row / tile)) ^
-            0xA5A5A5A5u;
-        const uint32_t rit = static_cast<uint32_t>(row % tile);
-        const float g_l = gumbel(salt, rit * 2u);
-        const float g_r = gumbel(salt, rit * 2u + 1u);
-        labels[row] = best[h].j;
-        sub[row] = (best[h].d + (g_r - g_l) + 1e-30f > 0.0f) ? 1 : 0;
-      }
-    }
+    write_labels(best, first_row, lane, seed, tile_off, tile, n, labels,
+                 sub);
   }
 }
 

@@ -214,7 +214,7 @@ __device__ __forceinline__ float walk_at(const CacheRows& r, CacheRows::Col c,
 }
 __device__ __forceinline__ float walk_at(const Bf16Rows& r, Bf16Rows::Col c,
                                          int p) {
-  return __bfloat162float(__ldg(r.feat + static_cast<size_t>(p) * r.f + c.c));
+  return __bfloat162float(__ldg(r.feat + static_cast<size_t>(p) * r.ld + c.c));
 }
 // Built rows walk as linear rows only as [1, x] (launch_walk): b = 0, so
 // the value is BuiltRows::at's X[a] * 1, from one read.
@@ -620,8 +620,8 @@ extern "C" int dpmm_stats_from_labels(const float* rows, const int32_t* pairs,
                                        n, f, k, scratch, stats, st));
 }
 
-// feat: the bf16 cache [n, f] ("bfloat16").
-extern "C" int dpmm_stats_from_labels_bf16(const void* feat,
+// feat: the bf16 cache [n, f] ("bfloat16"), rows ``ld`` values apart.
+extern "C" int dpmm_stats_from_labels_bf16(const void* feat, int ld,
                                            const int32_t* labels,
                                            const int32_t* sub,
                                            const uint8_t* valid, int n, int f,
@@ -629,7 +629,7 @@ extern "C" int dpmm_stats_from_labels_bf16(const void* feat,
                                            float* stats, void* stream) {
   using namespace dpmm;
   return static_cast<int>(launch_stats(
-      Bf16Rows{static_cast<const __nv_bfloat16*>(feat), f}, labels, sub,
+      Bf16Rows{static_cast<const __nv_bfloat16*>(feat), f, ld}, labels, sub,
       valid, n, f, k, scratch, stats, static_cast<cudaStream_t>(stream)));
 }
 

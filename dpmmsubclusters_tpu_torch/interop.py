@@ -4,14 +4,16 @@ package to the port.
 The JAX package keeps the same table layout as dicts of arrays; pass them
 here as numpy arrays (``jax.device_get(state.table)``).  Its per-point
 streams are lane-blocked ``[N/128, 128]``; the port's are flat ``[N]``.
-Its feature caches are padded to a multiple of 128 columns; the port's are
-not.  Nothing here imports ``jax``.
+Its feature caches are padded to a multiple of 128 columns; the port's f32
+cache is not, and its bf16 cache's rows lie a multiple of 8 values apart
+(its first F columns are the cache).  Nothing here imports ``jax``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .ops import sweep_kernels
 from .priors import GAUSSIAN
 from .sampler.driver import DPMMState
 
@@ -44,7 +46,8 @@ def state_from_jax(table_np, labels, sublabels, *, seed: int = 0,
 def _rows(a, f, device) -> torch.Tensor:
     """One JAX row array (f32 or bf16, as numpy) as a tensor of its first
     ``f`` columns; bf16 keeps its bits (numpy has no bf16 of its own: the
-    array's 2-byte elements are viewed as integers and back)."""
+    array's 2-byte elements are viewed as integers and back) and takes the
+    port's cache layout (``sweep_kernels.pad_bf16_rows``)."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(a).view(np.int16)).view(
@@ -53,6 +56,8 @@ def _rows(a, f, device) -> torch.Tensor:
         t = torch.from_numpy(np.array(a, np.float32))
     if f is not None:
         t = t[:, :f]
+    if t.dtype == torch.bfloat16:
+        return sweep_kernels.pad_bf16_rows(t.to(device))
     return t.contiguous().to(device)
 
 

@@ -35,17 +35,19 @@ _SIGNATURES = {
     # stream
     "dpmm_fused_assign": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                           _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    # feat, raw, pairs, d, then as dpmm_fused_assign from valid on, without
-    # warps
-    "dpmm_fused_assign_bf16": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # feat, ld, raw, pairs, d, then as dpmm_fused_assign from valid on,
+    # without warps
+    "dpmm_fused_assign_bf16": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+                               _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                               _P],
     # f, k, planes
     "dpmm_assign_tc_scratch": [_I, _I, _I],
     # rows, pairs, d, labels, sub, valid, n, f, k, scratch, stats, stream
     "dpmm_stats_from_labels": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                                _P],
-    # feat, labels, sub, valid, n, f, k, scratch, stats, stream
-    "dpmm_stats_from_labels_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # feat, ld, labels, sub, valid, n, f, k, scratch, stats, stream
+    "dpmm_stats_from_labels_bf16": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                                    _P],
     # labels, sub, valid, n, k, order, stream
     "dpmm_stats_key_sort": [_P, _P, _P, _I, _I, _P, _P],
     # n, f, k; n, k

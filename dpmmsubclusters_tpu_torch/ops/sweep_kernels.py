@@ -18,7 +18,11 @@ Both take flat ``int32 [N]`` label streams and, as the JAX functions do, a
 * ``"multinomial"``: raw counts ``[N, D]``, feature rows ``[1, x]``;
 * ``"bfloat16"``: the bf16 feature cache ``[N, F]``, upcast exactly (the
   statistics and, under ``ll_precision="highest"``, the ll product are f32
-  arithmetic on the upcast values);
+  arithmetic on the upcast values).  Its rows may lie apart by more than F
+  values (a row view, unit stride along a row): a fit builds it as the
+  first F columns of ``[N, ld]`` rows, ``ld`` a multiple of 8 and zeros
+  past F (:func:`empty_bf16_rows`), so that the card's copy engine can take
+  its rows (16-byte row pitch);
 * ``"hybrid"`` (kernel A only): the bf16 cache feeds the ll product and the
   statistics are the Gaussian rows built from the raw points ``x_raw [N,
   D]`` passed beside it.  Kernel B on a hybrid container is the
@@ -37,7 +41,9 @@ operands to one bf16 pass only under ``"bf16"`` or for a bf16 cache
 * ``"bf16"``, and ``"default"`` on a bf16 cache (``bfloat16``,
   ``hybrid``): rows and phi rounded to bf16 (to nearest even) and the exact
   products summed in float32, one pass of the card's tensor cores
-  (``csrc/fused_assign_tc.cu``);
+  (``csrc/fused_assign_tc.cu``; over a bf16 cache at K > 64 its kernel of
+  ``csrc/fused_assign_tc_tma.cuh``, whose launches are also counted in
+  ``fused_assign.tma_launches``);
 * ``"high"``, and ``"default"`` on float32 rows (``precomputed``,
   ``gaussian``, ``multinomial``): the float32-faithful three-pass split
   (XLA's bf16x3: rows and phi each as a bf16 ``hi`` plus a bf16 ``lo``, and
@@ -56,6 +62,7 @@ tile size ``tile``, every implementation draws the same noise.
 from __future__ import annotations
 
 import functools
+import warnings
 
 import torch
 
@@ -80,6 +87,9 @@ LL_PRECISIONS = ("default", "high", "highest", "bf16")
 # the three-pass split)
 _PLANES = {"highest": 0, "bf16": 1, "high": 2}
 _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
+# a bf16 cache's row pitch, in values, is a multiple of this (16 bytes: the
+# tensor map of csrc/fused_assign_tc_tma.cuh needs it)
+BF16_ROW_ALIGN = 8
 # kernel B's chunk (points a statistics partial sums) and its key sort's
 # layout: warps a chunk, and the most buckets whose tables fit in shared
 # memory (csrc/dpmm_kernels.cuh holds the same constants)
@@ -151,6 +161,37 @@ def feature_pairs(family_name: str, d: int, device) -> torch.Tensor:
         raise ValueError(f"no built rows for family_name={family_name!r}")
     return torch.tensor([a << 16 | b for a, b in pairs], dtype=torch.int32,
                         device=device)
+
+
+def bf16_row_stride(f: int) -> int:
+    """The row pitch, in values, of a bf16 cache of ``f`` features: ``f``
+    rounded up to a multiple of :data:`BF16_ROW_ALIGN`."""
+    return -(-f // BF16_ROW_ALIGN) * BF16_ROW_ALIGN
+
+
+def empty_bf16_rows(n: int, f: int, device) -> torch.Tensor:
+    """A bf16 cache ``[n, f]`` to fill: the first ``f`` columns of ``[n,
+    bf16_row_stride(f)]`` rows whose columns past ``f`` are zeros."""
+    ld = bf16_row_stride(f)
+    buf = torch.empty((n, ld), dtype=torch.bfloat16, device=device)
+    buf[:, f:] = 0
+    return buf[:, :f]
+
+
+def pad_bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 cache ``x [N, F]`` in the port's layout
+    (:func:`empty_bf16_rows`): the same values, rows 16-byte aligned and
+    ``bf16_row_stride(F)`` apart.  A copy."""
+    out = empty_bf16_rows(x.shape[0], x.shape[1], x.device)
+    out.copy_(x)
+    return out
+
+
+def _aligned_rows(x: torch.Tensor) -> bool:
+    """Whether a bf16 cache has the port's layout: unit stride along a row,
+    rows starting on 16-byte boundaries (so every row does)."""
+    return (x.stride(1) == 1 and x.stride(0) % BF16_ROW_ALIGN == 0
+            and x.data_ptr() % 16 == 0)
 
 
 def feature_rows(x, family_name: str) -> torch.Tensor:
@@ -301,7 +342,10 @@ def delta_rows(phi_mat, k: int) -> torch.Tensor:
     return phi_mat[:, k:].T.contiguous()
 
 
-def _check_cuda(name: str, **tensors):
+def _check_cuda(name: str, rows_view: str = "", **tensors):
+    """Device, dtype and shape of each tensor, and contiguity; the one named
+    ``rows_view`` (a bf16 cache) may be a row view instead: unit stride
+    along a row, rows at least a row apart."""
     dev = None
     for key, (t, dtype, shape) in tensors.items():
         if t.device.type != "cuda":
@@ -315,7 +359,12 @@ def _check_cuda(name: str, **tensors):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
-        if not t.is_contiguous():
+        if key == rows_view:
+            if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+                raise ValueError(f"{name}: {key} must hold its rows apart "
+                                 f"with unit stride along a row; got "
+                                 f"strides {t.stride()}")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
@@ -377,7 +426,7 @@ def stats_from_labels(x, labels, sub, valid, k: int,
     n = x.shape[0]
     pairs, d, f = _rows_arg(x, family_name)
     bf16 = family_name == "bfloat16"
-    _check_cuda("stats_from_labels",
+    _check_cuda("stats_from_labels", rows_view="x" if bf16 else "",
                 x=(x, torch.bfloat16 if bf16 else torch.float32, (n, d)),
                 labels=(labels, torch.int32, (n,)),
                 sub=(sub, torch.int32, (n,)),
@@ -389,7 +438,8 @@ def stats_from_labels(x, labels, sub, valid, k: int,
             scratch.data_ptr(), stats.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if bf16:
-        rc = lib.dpmm_stats_from_labels_bf16(x.data_ptr(), *tail)
+        rc = lib.dpmm_stats_from_labels_bf16(x.data_ptr(), x.stride(0),
+                                             *tail)
     else:
         rc = lib.dpmm_stats_from_labels(x.data_ptr(), _ptr(pairs), d, *tail)
     _build.check(rc, "stats_from_labels")
@@ -432,7 +482,8 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
 
     x       [N, F] float32 feature cache ("precomputed"), [N, D] raw
             points ("gaussian", "multinomial"; rows built in the kernel) or
-            [N, F] bfloat16 feature cache ("bfloat16", "hybrid")
+            [N, F] bfloat16 feature cache ("bfloat16", "hybrid"; a row view
+            may do, see the module note)
     x_raw   float32 [N, D] raw points of a "hybrid" container (its
             statistics rows), else None
     valid   bool [N]; invalid rows get labels but add no statistics
@@ -483,15 +534,27 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
         rows = {"x": (x, torch.bfloat16, (n, f))}
         if hybrid:
             rows["x_raw"] = (x_raw, torch.float32, (n, d))
-    _check_cuda("fused_assign", **rows,
+    _check_cuda("fused_assign", rows_view="x" if family_name in _BF16
+                else "", **rows,
                 valid=(valid, torch.bool, (n,)),
                 phi_mat=(phi_mat, torch.float32, (f, 2 * k)),
                 log_w=(log_w, torch.float32, (k,)),
                 seed=(seed, torch.int32, (1,)))
-    if planes == 2 and family_name in _BF16 and x.data_ptr() % 16:
-        # the three-pass split copies a bf16 cache's rows in 16-byte pieces
-        # from a 16-byte boundary on: a view that starts elsewhere is copied
-        x = x.clone()
+    # one bf16 pass over a bf16 cache at a pass width of 256 takes the
+    # kernel of csrc/fused_assign_tc_tma.cuh, whose tensor map needs the
+    # port's layout of the cache; the three-pass split copies a bf16 cache's
+    # rows in 16-byte pieces from a 16-byte boundary on.  A cache in
+    # another layout is copied into the port's for this call, with a
+    # warning: the caller should lay it out once (pad_bf16_rows)
+    tma = planes == 1 and family_name in _BF16 and k > 64
+    if (tma and not _aligned_rows(x)) or (
+            planes == 2 and family_name in _BF16 and x.data_ptr() % 16):
+        warnings.warn(
+            "fused_assign: the bf16 cache is not in the port's layout (rows "
+            "16-byte aligned, a multiple of 8 values apart); it is copied "
+            "for every such call; lay it out once with "
+            "sweep_kernels.pad_bf16_rows", RuntimeWarning, stacklevel=2)
+        x = pad_bf16_rows(x)
     lib = _build.load()
     delta_t = phi_t = None
     if tensor_cores:
@@ -511,7 +574,8 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     outs = (labels.data_ptr(), sub.data_ptr(), scratch.data_ptr(),
             stats.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if family_name in _BF16:
-        rc = lib.dpmm_fused_assign_bf16(x.data_ptr(), _ptr(x_raw),
+        rc = lib.dpmm_fused_assign_bf16(x.data_ptr(), x.stride(0),
+                                        _ptr(x_raw),
                                         _ptr(pairs), d, *args, *outs)
     else:
         rc = lib.dpmm_fused_assign(x.data_ptr(), _ptr(pairs), d, *args,
@@ -520,6 +584,8 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     fused_assign.launches[_launch_key(family_name, cta_points)] += 1
     if tensor_cores:
         fused_assign.tensor_core_launches[family_name] += 1
+    if tma:
+        fused_assign.tma_launches[family_name] += 1
     return labels, sub, stats
 
 
@@ -529,6 +595,7 @@ def reset_launches() -> None:
         VARIANTS + tuple(_launch_key("precomputed", c) for c in CTA_POINTS
                          if c != FIT_CTA_POINTS), 0)
     fused_assign.tensor_core_launches = dict.fromkeys(VARIANTS, 0)
+    fused_assign.tma_launches = dict.fromkeys(_BF16, 0)
     stats_from_labels.launches = dict.fromkeys(STATS_VARIANTS, 0)
     key_sort.launches = 0
 

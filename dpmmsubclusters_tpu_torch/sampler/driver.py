@@ -68,11 +68,13 @@ def bf16_features(family, points: torch.Tensor, seed: int,
                   row0: int = 0) -> torch.Tensor:
     """The bf16 feature cache [N, F] of ``points`` (global rows ``row0
     ..``), built FEATURIZE_ROWS rows at a time (a whole f32 cache of 10M x
-    64-d points would be 86 GB); the bits do not depend on the chunk
-    size."""
+    64-d points would be 86 GB); the bits do not depend on the chunk size.
+    It is the first F columns of rows ``sweep_kernels.bf16_row_stride(F)``
+    values apart, zeros past F (``sweep_kernels.empty_bf16_rows``: the
+    layout that the kernel of one bf16 pass copies by a tensor map)."""
     n, d = points.shape
-    out = torch.empty((n, family.feature_dim(d)), dtype=torch.bfloat16,
-                      device=points.device)
+    f = family.feature_dim(d)
+    out = sweep_kernels.empty_bf16_rows(n, f, points.device)
     for p0 in range(0, n, FEATURIZE_ROWS):
         p1 = min(n, p0 + FEATURIZE_ROWS)
         out[p0:p1] = stochastic_bf16(family.features(points[p0:p1]), seed,
@@ -177,7 +179,8 @@ class DPMMEngine:
 
         * "float32": the f32 cache [N, F];
         * "bfloat16": the bf16 cache [N, F] (:func:`bf16_features`; ``seed``
-          keys its rounding), which feeds the ll product and the statistics;
+          keys its rounding; its rows padded to a multiple of 8 values),
+          which feeds the ll product and the statistics;
         * "hybrid" (Gaussian only): ``{"feat": bf16 [N, F], "raw":
           points}``: the bf16 cache feeds only the ll product, and the
           statistics are built in f32 from the raw points, held as they

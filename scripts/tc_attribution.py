@@ -9,26 +9,30 @@ checks' shapes (``chip_smoke.Case``):
   the argmax draws as few noises as on real data);
 * ``no_phi``: no phi tile copied (the barriers still count the copies'
   bytes as arrived);
-* ``no_rows``: no rows loaded, built or stored (nor the points staged);
+* ``no_rows``: no rows loaded, built or stored (nor the points staged;
+  for the tensor-map design, no rows' copy);
 * ``no_epilogue``: no Gumbel argmax fold (labels still written).
 
 A variant's time against ``base`` is what that part costs beyond what the
 rest hides.  Each time is the device time of the pass's kernels
-(``stage_phi_kernel`` and ``assign_tc_kernel``) a call, by torch.profiler
+(``stage_phi_kernel`` and ``assign_tc_kernel`` or ``assign_tma_kernel``)
+a call, by torch.profiler
 over 3 calls after a warm-up (``chip_smoke.device_ms_by_kernel``): the
 statistics pass after it is left out, as its time depends on the labels,
 which the ablated kernels make nonsense of.  One JSON line a (variant,
 shape), with the card's name and power limit.
 
     python scripts/tc_attribution.py [--src DIR] [--variants a,b] \\
-        [--shapes gaussian,hybrid,precomputed]
+        [--shapes gaussian,hybrid,precomputed,bfloat16] [--design NAME]
 
 ``--src`` names another tree's ``csrc`` (a ``git archive`` of an earlier
 commit): its kernels are built and driven through this tree's wrappers
 (the C interface is the same).  ``--design`` picks the ablations' kernel
-("ring": fused_assign_tc_ring.cuh, which the two-plane shapes at a pass
-width of 256 take; "column halves": fused_assign_tc.cuh); by default the
-newest one the source holds.  Needs a card and nvcc.
+("tma": fused_assign_tc_tma.cuh, which one bf16 pass over a bf16 cache
+at a pass width of 256 takes; "ring": fused_assign_tc_ring.cuh, the two
+planes there; "column halves": fused_assign_tc.cuh, the rest); by default
+the newest one the source holds, at the shapes that take it (``--shapes``
+overrides).  Needs a card and nvcc.
 """
 from __future__ import annotations
 
@@ -120,8 +124,8 @@ PATCHES = {
              "        store_pair"),
             ("      for (int i = 0; i < kTcConsumerRows; ++i, xr += rows.d) {",
              "      for (int i = 0; i < 0; ++i, xr += rows.d) {"),
-            ("    for (int i = 0; i < kTcConsumerRows; ++i, p += rows.f) {",
-             "    for (int i = 0; i < 0; ++i, p += rows.f) {"),
+            ("    for (int i = 0; i < kTcConsumerRows; ++i, p += rows.ld) {",
+             "    for (int i = 0; i < 0; ++i, p += rows.ld) {"),
             ("          for (int j = 0; j < pieces; ++j) {",
              "          for (int j = 0; j < 0; ++j) {"),
             ("      for (int i = 0; i < kTcConsumerRows; ++i) {",
@@ -135,10 +139,38 @@ PATCHES = {
         ],
     },
 }
-# the header each design's kernel lives in
+PATCHES["tma"] = {
+    # one bf16 pass over a bf16 cache at a pass width of 256: the rows by a
+    # tensor-map copy, phi multicast, no thread touching a row
+    "no_product": [
+        ("          wgmma_bf16(acc, da + 2 * kk, db + 2 * kk);",
+         "          if (false) wgmma_bf16(acc, da + 2 * kk, db + 2 * kk);"),
+        ("for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;",
+         "for (int i = 0; i < N / 2; ++i) acc[i] = 100.0f * i;"),
+    ],
+    "no_phi": [
+        ("    mbar_expect(w.full_bar(s), kRowTile + kPhiTile);",
+         "    mbar_expect(w.full_bar(s), kRowTile);"),
+        ("    ring::bulk_copy_multicast(",
+         "    if (false) ring::bulk_copy_multicast("),
+    ],
+    "no_rows": [
+        ("    mbar_expect(w.full_bar(s), kRowTile + kPhiTile);\n"
+         "    tma_load_rows(",
+         "    mbar_expect(w.full_bar(s), kPhiTile);\n"
+         "    if (false) tma_load_rows("),
+    ],
+    "no_epilogue": PATCHES["ring"]["no_epilogue"],
+}
+# the header each design's kernel lives in, oldest first
 HEADERS = {"column halves": "fused_assign_tc.cuh",
-           "ring": "fused_assign_tc_ring.cuh"}
-SHAPES = ("gaussian", "hybrid", "precomputed")
+           "ring": "fused_assign_tc_ring.cuh",
+           "tma": "fused_assign_tc_tma.cuh"}
+# the shapes each design's kernel takes (chip_smoke.Case's)
+DESIGN_SHAPES = {"column halves": "gaussian,hybrid,precomputed",
+                 "ring": "gaussian,hybrid,precomputed",
+                 "tma": "hybrid,bfloat16"}
+SHAPES = ("gaussian", "hybrid", "precomputed", "bfloat16")
 
 
 def variant_lib(src: pathlib.Path, name: str, header: str,
@@ -166,12 +198,17 @@ def variant_lib(src: pathlib.Path, name: str, header: str,
 def shape_case(torch, dev, shape: str):
     """The kernel checks' inputs (``chip_smoke.check_kernels``): the
     10M x 64-d fit's rows (D=64, F=2145, K=256) built, or as a hybrid bf16
-    cache; the flagship's f32 cache (D=32, F=561, K=128)."""
+    cache; the flagship's f32 or bf16 cache (D=32, F=561, K=128)."""
     if shape == "precomputed":
         x, _ = cs.separated_data(cs.N_CHECK, cs.D_FLAG, cs.K_TRUE_FLAG)
         x = (x - x.mean(0)) / x.std(0)
         return cs.Case(torch, dev, x, "gaussian", cs.K_MAX_FLAG,
                        cache="float32")
+    if shape == "bfloat16":
+        x, _ = cs.separated_data(cs.N_CHECK, cs.D_FLAG, cs.K_TRUE_FLAG)
+        x = (x - x.mean(0)) / x.std(0)
+        return cs.Case(torch, dev, x, "gaussian", cs.K_MAX_FLAG,
+                       cache="bfloat16")
     x, _ = cs.separated_data(cs.N_CHECK, 64, 100)
     x = (x - x.mean(0)) / x.std(0)
     if shape == "hybrid":
@@ -188,7 +225,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(_build.CSRC))
     ap.add_argument("--variants", default="")
-    ap.add_argument("--shapes", default=",".join(SHAPES))
+    ap.add_argument("--shapes", default="")
     ap.add_argument("--ll-precision", default="default")
     ap.add_argument("--design", default="", choices=("",) + tuple(HEADERS))
     args = ap.parse_args()
@@ -198,6 +235,7 @@ def main() -> int:
     src = pathlib.Path(args.src).resolve()
     design = args.design or next(d for d in reversed(HEADERS)
                                  if (src / HEADERS[d]).exists())
+    shapes = (args.shapes or DESIGN_SHAPES[design]).split(",")
     names = ["base"] + list(PATCHES[design])
     if args.variants:
         names = [n for n in names if n in args.variants.split(",")]
@@ -206,7 +244,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = profiling.card(dev)
     main_load = _build.load
-    for shape in args.shapes.split(","):
+    for shape in shapes:
         case = shape_case(torch, dev, shape)
         kw = dict(case.kw(), ll_precision=args.ll_precision)
         for name in names:
@@ -218,6 +256,7 @@ def main() -> int:
                 _build.load = main_load
             pass_ms = sum(v for kname, v in by_kernel.items()
                           if kname in ("assign_tc_kernel",
+                                       "assign_tma_kernel",
                                        "stage_phi_kernel"))
             print(json.dumps(dict(design=design, variant=name, shape=shape,
                                   k=case.k, f=case.phi_mat.shape[0],

@@ -10,7 +10,12 @@ points staged in shared memory (D = 32, 64) and read from device memory
 (D = 70 beside two stages of the two-plane ring at N = 256).  Labels
 equal but at near ties of the whole columns' logits (with the label
 noise, soft), sub-labels equal wherever the labels are but at near ties
-of their draw, two launches equal.
+of their draw, two launches equal.  One bf16 pass over a bf16 cache at a
+pass width of 256 (``csrc/fused_assign_tc_tma.cuh``, its rows copied by
+a tensor map) the same way, with its launch count: K in {65, 128, 129,
+256} by F in {561, 2145, 2556}, ragged N with odd tile counts, rows
+holding NaN, a cache view off a 16-byte boundary, "hybrid", two launches
+bit for bit.
 
 Imports only torch, numpy, pytest and the port, so it runs where JAX is
 not installed:
@@ -136,3 +141,138 @@ def test_tc_features_not_whole_slices(rng, cuda, family, d, k, route):
     built from points staged in shared memory (D = 32, 64) or, at D = 70
     and two planes, read from device memory."""
     _check(*_case(rng, family, 1500, d, k, cuda), family, route)
+
+
+# ---- one bf16 pass over a bf16 cache at a pass width of 256 (K > 64):
+# csrc/fused_assign_tc_tma.cuh, the cache's rows copied by the tensor map
+def _bf16_case(rng, n, d, k, dev):
+    """``_case``'s Gaussian inputs with the points' bf16 cache as fit builds
+    it (rows padded to a multiple of 8 values, zeros past F), and the raw
+    points for "hybrid"."""
+    from dpmmsubclusters_tpu_torch.sampler.driver import bf16_features
+
+    x, valid, phi, log_w = _case(rng, "gaussian", n, d, k, dev)
+    return bf16_features(TG, x, SEED), valid, phi, log_w, x
+
+
+def _check_tma(cache, valid, phi, log_w):
+    """``_check`` of the "bfloat16" variant on the bf16 cache under
+    "default" (one bf16 pass), which must launch the new kernel once a call
+    (four calls: hard and soft, each against a second launch)."""
+    sk.reset_launches()
+    _check(cache, valid, phi, log_w, "bfloat16", "default")
+    assert sk.fused_assign.tma_launches == {"bfloat16": 4, "hybrid": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [65, 128, 129, 256])
+@pytest.mark.parametrize("d", [32, 64, 70])
+def test_tma_cache_k_and_f(rng, cuda, d, k):
+    """F = 561, 2145, 2556 (row pitch 568, 2152, 2560; a last slice of
+    zeros) at K = 65, 128 (one pass), 129 and 256 (two)."""
+    cache, valid, phi, log_w, _ = _bf16_case(rng, 1500, d, k, cuda)
+    assert cache.stride(0) % 8 == 0 and cache.stride(0) > cache.shape[1] - 8
+    _check_tma(cache, valid, phi, log_w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [129, 320, 639, 200 * 128 + 64])
+def test_tma_ragged_n_and_odd_tiles(rng, cuda, n):
+    """2, 3, 5 and 201 tiles of 128 points: a last cluster whose partner
+    walks an empty tile, and clusters that walk several tile pairs."""
+    _check_tma(*_bf16_case(rng, n, 8, 129, cuda)[:4])
+
+
+@pytest.mark.gpu
+def test_tma_nan_rows(rng, cuda):
+    """Rows holding NaN: their logits are -inf, so they take column 0 and
+    sub-label 0, as in the plain version (hard and soft)."""
+    cache, valid, phi, log_w, _ = _bf16_case(rng, 1000, 8, 100, cuda)
+    cache[5, 3] = float("nan")
+    cache[700:704, 0] = float("nan")
+    _check_tma(cache, valid, phi, log_w)
+    labels, sub, _ = sk.fused_assign(cache, valid, phi, log_w, SEED,
+                                     TILE_OFF, False, tile=TILE,
+                                     family_name="bfloat16",
+                                     ll_precision="default")
+    rows = torch.tensor([5, 700, 701, 702, 703], device=cuda)
+    assert not labels[rows].any() and not sub[rows].any()
+
+
+@pytest.mark.gpu
+def test_tma_cache_view_off_16_byte_boundary(rng, cuda):
+    """A cache whose rows start 2 bytes past a 16-byte boundary (a column
+    view of a wider array) is copied into the port's layout first, with a
+    warning; the labels are those of the same values in that layout."""
+    cache, valid, phi, log_w, _ = _bf16_case(rng, 700, 8, 80, cuda)
+    f = cache.shape[1]
+    wide = torch.zeros((cache.shape[0], f + 3), dtype=torch.bfloat16,
+                       device=cuda)
+    wide[:, 1:f + 1] = cache
+    view = wide[:, 1:f + 1]
+    assert view.data_ptr() % 16 != 0 and view.stride(0) == f + 3
+    with pytest.warns(RuntimeWarning, match="pad_bf16_rows"):
+        _check_tma(view, valid, phi, log_w)
+    for hard in (True, False):
+        args = (valid, phi, log_w, SEED, TILE_OFF, hard)
+        kw = dict(tile=TILE, family_name="bfloat16", ll_precision="default")
+        with pytest.warns(RuntimeWarning, match="pad_bf16_rows"):
+            a = sk.fused_assign(view, *args, **kw)
+        b = sk.fused_assign(cache, *args, **kw)
+        for u, v in zip(a, b):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+def test_tma_hybrid(rng, cuda):
+    """The "hybrid" container at the 10M x 64-d fit's width (D = 64, K =
+    256): the labels of its bf16 rows, its statistics from the raw
+    points."""
+    cache, valid, phi, log_w, x = _bf16_case(rng, 1100, 64, 256, cuda)
+    _check_tma(cache, valid, phi, log_w)
+    sk.reset_launches()
+    for hard in (True, False):
+        args = (cache, valid, phi, log_w, SEED, TILE_OFF, hard)
+        kw = dict(tile=TILE, ll_precision="default")
+        lh, sh, sth = sk.fused_assign(*args, family_name="hybrid",
+                                      x_raw=x, **kw)
+        lb, sb, _ = sk.fused_assign(*args, family_name="bfloat16", **kw)
+        assert torch.equal(lh, lb) and torch.equal(sh, sb)
+        want = sk.stats_from_labels(x, lh, sh, valid, log_w.shape[0],
+                                    "gaussian")
+        assert torch.equal(sth, want)
+    assert sk.fused_assign.tma_launches == {"bfloat16": 2, "hybrid": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["bfloat16", "hybrid"])
+def test_tma_same_bits_twice(rng, cuda, family):
+    """Two launches give the same labels, sub-labels and statistics."""
+    cache, valid, phi, log_w, x = _bf16_case(rng, 5000, 32, 200, cuda)
+    kw = dict(tile=TILE, family_name=family, ll_precision="default",
+              x_raw=x if family == "hybrid" else None)
+    a = sk.fused_assign(cache, valid, phi, log_w, SEED, TILE_OFF, False, **kw)
+    b = sk.fused_assign(cache, valid, phi, log_w, SEED, TILE_OFF, False, **kw)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,launches", [(64, 0), (65, 1)])
+def test_tma_launch_count(rng, cuda, k, launches):
+    """The new kernel takes one bf16 pass over a bf16 cache above K = 64
+    (a pass width of 256), and nothing else: not K = 64, not the
+    three-pass split, not float32 rows."""
+    cache, valid, phi, log_w, x = _bf16_case(rng, 900, 8, k, cuda)
+    args = (valid, phi, log_w, SEED, TILE_OFF, False)
+    sk.reset_launches()
+    sk.fused_assign(cache, *args, tile=TILE, family_name="bfloat16",
+                    ll_precision="default")
+    assert sk.fused_assign.tma_launches == {"bfloat16": launches,
+                                            "hybrid": 0}
+    sk.fused_assign(cache, *args, tile=TILE, family_name="bfloat16",
+                    ll_precision="high")
+    sk.fused_assign(TG.features(x), *args, tile=TILE,
+                    family_name="precomputed", ll_precision="bf16")
+    assert sk.fused_assign.tma_launches["bfloat16"] == launches
+    assert sk.fused_assign.tensor_core_launches["bfloat16"] == 2

@@ -329,9 +329,10 @@ def test_fit_four_corners_with_each_layout(layout):
 
 
 def test_cache_bytes_by_layout_and_no_effect_without_a_cache():
-    """The auto cache counts F x 4, F x 2 and F x 2 + D x 4 bytes a point
-    (unpadded); 10M x 64-d: 86 GB, 42.9 GB and 45.5 GB.  Without a cache
-    ``feature_dtype`` changes nothing."""
+    """The auto cache counts F x 4, ld x 2 and ld x 2 + D x 4 bytes a point
+    (ld, the bf16 rows' pitch, F rounded up to a multiple of 8); 10M x
+    64-d: 86 GB, 43.0 GB and 45.6 GB.  Without a cache ``feature_dtype``
+    changes nothing."""
     cfg = tdpmm.DPMMConfig(feature_cache_bytes=44 * 10**9)
     on = {dt: _resolve_precompute(TG, cfg.replace(feature_dtype=dt),
                                   10_000_000, 64).precompute_features
