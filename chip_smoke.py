@@ -58,6 +58,7 @@ and profiles 8 steady sweeps of the flagship fit (f32 cache, under
     python3 chip_smoke.py --kernel-b    # kernel B alone: digests and times
     python3 chip_smoke.py --chain-quality   # 1M x 64-d, seeds 1-5
     python3 chip_smoke.py --huge        # the 10M x 64-d fits alone
+    python3 chip_smoke.py --studies     # kernels C, D's column sums, E
 
 ``--kernel-a`` prints the exact route's digests and kernel A's times in
 each variant under every ll_precision, each with its share of the bound,
@@ -65,6 +66,9 @@ the tile study's blocks and kernel D's stage sets; ``--kernel-b`` prints kernel 
 under the three label sets (with the device time of each of its kernels);
 both one JSON line each, with whichever dpmmsubclusters_tpu_torch sits
 beside this file: a copy in another tree times that tree.
+``--studies`` prints kernel C's and kernel D's column-sum sets' whole
+calls and device times beside their library calls', and kernel E's, one
+JSON line each (a copy in another tree times that tree).
 ``--huge`` runs the two 10M x 64-d fits alone and prints their ms/sweep
 and device ms/sweep by part, one JSON line (a copy in another tree times
 that tree).  ``--chain-quality`` fits 1M x 64-d (K_true=100, no cache) at
@@ -112,6 +116,8 @@ SOURCES = {
     "fused_assign_tc3": "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc3.cu",
     "fused_assign_tc_tma":
         "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc_tma.cuh",
+    "fused_assign_tc_ring":
+        "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc_ring.cuh",
     "stats_from_labels": "dpmmsubclusters_tpu_torch/csrc/stats_from_labels.cu",
     "build_gate": "chip_smoke.py",      # GATE_KERNEL, built by _build.py
     "column_sum": "dpmmsubclusters_tpu_torch/csrc/column_sum.cu",
@@ -676,6 +682,26 @@ def device_ms_by_kernel(torch, fn, reps: int = 3) -> dict:
     return {k: round(v, 4) for k, v in out.items()}
 
 
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Device ms a call of ``fn``: the sum of its kernels' times in
+    torch.profiler (:func:`device_ms_by_kernel` over ``reps`` calls)."""
+    return round(sum(device_ms_by_kernel(torch, fn, reps).values()), 4)
+
+
+def host_us(torch, fn, reps: int = 1000) -> float:
+    """Host microseconds a call of ``fn`` takes to return (its launches
+    enqueued, the card not waited for), the mean over ``reps`` calls (few
+    enough that the launch queue does not fill)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def kernel_b_main() -> int:
     """``--kernel-b``: kernel B's digests and its times in each variant
     under the three label sets, one JSON line each, with whichever
@@ -1181,12 +1207,19 @@ def build_gate(torch, _build, smi: str) -> dict:
     err = float((run() - plain()).abs().max())
     assert err == 0.0, f"lane_iota differs from x + iota by {err}"
     ms, plain_ms = time_ms(torch, run), time_ms(torch, plain)
+    dev_ms, plain_dev = device_ms(torch, run), device_ms(torch, plain)
+    # the host's part of a call: the time each takes to return
+    run_us, plain_us = host_us(torch, run), host_us(torch, plain)
     b = least_time(2 * x.numel() * 4, x.numel())
-    log(f"build gate: lane_iota built and ran, {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b['bound_ms']:.2e} ms ({b['bound_by']}) "
-        f"on an (8, 128) tile ({smi}); max abs err {err}")
+    log(f"build gate: lane_iota built and ran, {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms, host {run_us:.1f} us a call), plain {plain_ms:.4f} "
+        f"ms (device {plain_dev:.4f} ms, host {plain_us:.1f} us), bound "
+        f"{b['bound_ms']:.2e} ms ({b['bound_by']}) on an (8, 128) tile "
+        f"({smi}); max abs err {err}")
     return dict(launches=n_path, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **b, library_ms=plain_ms)
+                **b, library_ms=plain_ms, device_ms=dev_ms,
+                library_device_ms=plain_dev, host_us=run_us,
+                library_host_us=plain_us)
 
 
 def check_kernels(torch, dev, smi: str) -> dict:
@@ -1215,8 +1248,10 @@ def check_kernels(torch, dev, smi: str) -> dict:
                           f"kernel A precomputed K={k}", wide, smi,
                           bf16=True)
         del wide
-    # "default" on float32 rows at the narrowest pass and one past 128
-    for k in (15, 129):
+    # "default" on float32 rows at the narrowest pass, the widest pass of
+    # fused_assign_tc.cuh's kernel (K <= 64: the fits' early tiers) and one
+    # past 128
+    for k in (15, 64, 129):
         other = Case(torch, dev, x, "gaussian", k, cache="float32")
         out[f"fused_assign[precomputed] K={k}"] = check_assign(
             torch, sk, f"kernel A precomputed K={k}", other, smi, "default")
@@ -1239,10 +1274,11 @@ def check_kernels(torch, dev, smi: str) -> dict:
     check_bf16(torch, sk, out, case.raw, 256, smi, main=False)
     del case
     torch.cuda.empty_cache()
-    case = Case(torch, dev, x, "gaussian", 128)
-    out["fused_assign[gaussian] K=128"] = check_assign(
-        torch, sk, "kernel A gaussian K=128", case, smi, "default")
-    del case
+    for k in (64, 128):       # fused_assign_tc.cuh's kernel, then the ring
+        case = Case(torch, dev, x, "gaussian", k)
+        out[f"fused_assign[gaussian] K={k}"] = check_assign(
+            torch, sk, f"kernel A gaussian K={k}", case, smi, "default")
+        del case
     torch.cuda.empty_cache()
 
     # the multinomial fits' counts: D=100, F=101, K=64
@@ -1271,7 +1307,8 @@ def close_sums(torch, got, want, abs_sum, rtol: float = 1e-5) -> float:
 
 def check_column_sum(torch, stk, x, smi: str) -> dict:
     """Kernel C (the tile study's dma_only mode) against its plain version
-    and torch.sum on the study's x [1M, 640]."""
+    and torch.sum on the study's x [1M, 640]: the whole call (CUDA events)
+    and the device time (torch.profiler, the call's kernels) of each."""
     two = torch.empty((2, x.shape[1]), device=x.device)
     got = stk.column_sum(x, two.clone())
     err = close_sums(torch, got, stk.column_sum_reference(x, two),
@@ -1281,13 +1318,22 @@ def check_column_sum(torch, stk, x, smi: str) -> dict:
     ms = time_ms(torch, lambda: stk.column_sum(x))
     plain_ms = time_ms(torch, lambda: stk.column_sum_reference(x))
     library_ms = time_ms(torch, lambda: torch.sum(x, 0))
+    dev = device_ms(torch, lambda: stk.column_sum(x))
+    library_dev = device_ms(torch, lambda: torch.sum(x, 0))
+    run_us = host_us(torch, lambda: stk.column_sum(x), reps=20)
+    library_us = host_us(torch, lambda: torch.sum(x, 0), reps=20)
     n, f = x.shape
     b = least_time(4 * n * f + 4 * f, n * f)
-    log(f"kernel C column_sum: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"torch.sum {library_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
-        f"({b['bound_by']}) (N={n}, F={f}; {smi}); max abs err {err:.3g}")
+    log(f"kernel C column_sum: {ms:.3f} ms (device {dev:.3f}, host "
+        f"{run_us:.1f} us), plain {plain_ms:.3f} ms, torch.sum "
+        f"{library_ms:.3f} ms (device {library_dev:.3f}, host "
+        f"{library_us:.1f} us), bound {b['bound_ms']:.3f} ms ({b['bound_by']}; "
+        f"device share {b['bound_ms'] / dev:.1%}) (N={n}, F={f}; {smi}); "
+        f"max abs err {err:.3g}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
-                library_ms=library_ms)
+                library_ms=library_ms, device_ms=dev,
+                library_device_ms=library_dev, host_us=run_us,
+                library_host_us=library_us)
 
 
 def check_tile_study(torch, sk, kts, x, valid, phi, log_w, smi: str,
@@ -1337,7 +1383,8 @@ def check_tile_study(torch, sk, kts, x, valid, phi, log_w, smi: str,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, library_ms=None)
 
 
-def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
+def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict,
+                 keys=None) -> None:
     """Kernel D, each stage set of the ablation at its full size (1M x
     F=561, K=128, tile 512) against its plain version.  The product is the
     exact float32 one (the ablation of kernel A under ll_precision
@@ -1346,7 +1393,9 @@ def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
     kernel A's hard labels ("+stats"; the same FMA chain on the same whole
     columns gives the same bits), its soft labels ("+gumbel"; the same
     noise), and the full set's labels and sides (which also equal kernel
-    A's soft labels: a twin gate)."""
+    A's soft labels: a twin gate).  Each set's whole call (CUDA events) and
+    device time (torch.profiler), and its library call's where one PyTorch
+    call computes the set; with ``keys``, only those sets."""
     n, k, tile = N_CHECK, K_MAX_FLAG, kab.TILE
     f = 1 + D_FLAG + D_FLAG * (D_FLAG + 1) // 2
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1370,6 +1419,8 @@ def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
     xabs = x.abs().sum(0)
     for name, stages in kab.VARIANTS:
         key = stk.stage_key(stages)
+        if keys is not None and key not in keys:
+            continue
 
         def run(stages=stages):       # the study's entry, seed first
             return kab.variant(SEED, *args[:-1], tile=tile, stages=stages)
@@ -1415,6 +1466,11 @@ def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
         ms = time_ms(torch, run)
         plain_ms = time_ms(torch, plain)
         library_ms = None if library is None else time_ms(torch, library)
+        dev_ms = device_ms(torch, run)
+        library_dev = None if library is None else device_ms(torch, library)
+        run_us = host_us(torch, run, reps=20)
+        library_us = (None if library is None
+                      else host_us(torch, library, reps=20))
         # the bound counts what the set's outputs need: x read once, every
         # output (labels, sides, statistics) written once, one add a sum;
         # the product's columns (2 flop a term) only where the labels or
@@ -1440,14 +1496,20 @@ def check_ablate(torch, sk, stk, kab, dev, smi: str, out: dict) -> None:
             live = flop
         b = least_time(nbytes, flop)
         live_ms = least_time(nbytes, live)["bound_ms"]
-        log(f"kernel D {name} ({key}): {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms, library {library_ms} ms, bound {b['bound_ms']:.3f} ms "
+        log(f"kernel D {name} ({key}): {ms:.3f} ms (device {dev_ms:.3f}, "
+            f"host {run_us:.1f} us), plain {plain_ms:.3f} ms, library "
+            f"{library_ms} ms (device {library_dev}, host {library_us} us), "
+            f"bound {b['bound_ms']:.3f} ms "
             f"({b['bound_by']}), bound of the work the kernel keeps live "
             f"{live_ms:.3f} ms (N={n}, F={f}, K={k}, tile {tile}; {smi}); "
             f"max abs err {err:.3g}")
         out[f"kernel_ablate[{key}]"] = dict(max_abs_err=err, ms=ms,
                                             plain_ms=plain_ms, **b,
-                                            library_ms=library_ms)
+                                            library_ms=library_ms,
+                                            device_ms=dev_ms,
+                                            library_device_ms=library_dev,
+                                            host_us=run_us,
+                                            library_host_us=library_us)
         if key == "dot_only":
             # its target is within 15% of the one PyTorch call; the gate
             # only refuses a return to the product over the points (16.7x)
@@ -1475,6 +1537,40 @@ def check_study_kernels(torch, dev, smi: str) -> dict:
     check_ablate(torch, sk, stk, kab, dev, smi, out)
     torch.cuda.empty_cache()
     return out
+
+
+def studies_main() -> int:
+    """``--studies``: kernel C at 1M x 640 and kernel D's sets that are its
+    column sums (dma_only, dot_only, stats_raw) at 1M x 561, K=128, each
+    against its plain version, and kernel E; one JSON line each with the
+    whole call and the device time beside its library call's, with
+    whichever dpmmsubclusters_tpu_torch sits beside this file (an A/B of
+    two trees: copy this file into each)."""
+    import torch
+
+    from dpmmsubclusters_tpu_torch.benchmarks import kernel_ablate as kab
+    from dpmmsubclusters_tpu_torch.benchmarks import kernel_tile_study as kts
+    from dpmmsubclusters_tpu_torch.ops import _build
+    from dpmmsubclusters_tpu_torch.ops import study_kernels as stk
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+    from dpmmsubclusters_tpu_torch.utils import profiling
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = profiling.card(dev)
+    out = {}
+    x = kts.inputs(N_CHECK, D_FLAG, K_MAX_FLAG, dev)[0]
+    out["column_sum[dma_only]"] = check_column_sum(torch, stk, x, smi)
+    del x
+    free(torch)
+    check_ablate(torch, sk, stk, kab, dev, smi, out,
+                 keys=("dma_only", "dot_only", "stats_raw"))
+    out["build_gate"] = build_gate(torch, _build, smi)
+    for name, row in out.items():
+        print(json.dumps(dict(row, kernel=name, card=smi)), flush=True)
+    return 0
 
 
 def run_studies(torch, smi: str) -> dict:
@@ -1585,8 +1681,10 @@ def run_fit(torch, name: str, x, gt, variant, **kw) -> dict:
     assert sum(tc.values()) == tc[a_variant], (name, tc)
     counts["tensor_core"] = tc
     # ... and above K = 64 over a bf16 cache, the kernel of
-    # fused_assign_tc_tma.cuh
+    # fused_assign_tc_tma.cuh; under the three-pass split, that of
+    # fused_assign_tc_ring.cuh
     counts["tma"] = dict(sk.fused_assign.tma_launches)
+    counts["ring"] = dict(sk.fused_assign.ring_launches)
     nmi = dpmm.nmi(gt, res.labels)
     ms_sweep = float(np.median(res.history.times[-40:])) * 1e3
     cache = (f", cache ({res.model.cfg.feature_dtype}) built in "
@@ -2188,7 +2286,7 @@ def run_distributed(torch, ref: dict, smi: str) -> dict:
 
 
 # the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
-CARD_TESTS = 210
+CARD_TESTS = 256
 
 
 def run_card_tests(smi: str) -> int:
@@ -2384,6 +2482,23 @@ def main() -> int:
     run_distributed(torch, flag_ref, smi)
     del flag_ref
 
+    report = build_report(sk, kernels, launches, exact, split, studies)
+    log(f"whole run {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps(report))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def build_report(sk, kernels: dict, launches: dict, exact: dict,
+                 split: dict, studies: dict) -> dict:
+    """The line before the last: every kernel's row, with its launches on
+    its own path (``launches``: the fits at the default precision, by
+    variant, :func:`run_fit`'s counts; ``exact`` under "highest", ``split``
+    under "high"; ``studies``: :func:`run_studies`'s) and its check's
+    numbers (``kernels``).  Raises if a kernel of a path did not run."""
     report = {"kernels": []}
     for name, variants in (("fused_assign", ("precomputed", "gaussian",
                                              "multinomial", "bfloat16",
@@ -2420,15 +2535,21 @@ def main() -> int:
                     source = SOURCES["fused_assign_tc_tma"]
                     n_launch = n_tma
                 else:
-                    what += (", ll_precision default: the three-pass bf16 "
-                             "split")
-                    source = SOURCES["fused_assign_tc3"]
-            report["kernels"].append({
-                "name": f"{name}[{variant}]", "route": "cuda",
-                "source": source,
-                "replaces": f"{REPLACES[name]} ({what})",
-                "launches": n_launch,
-                **kernels[f"{name}[{variant}]"]})
+                    # the fits' widest tiers take the ring
+                    assert (variant == "multinomial"
+                            or launches[variant]["ring"][variant] > 0), (
+                        variant, "the ring did not run", launches[variant])
+                    split_rows(report, kernels, variant, launches[variant],
+                               f"{what}, ll_precision default: the "
+                               f"three-pass bf16 split", "")
+                    n_launch = 0
+            if n_launch:
+                report["kernels"].append({
+                    "name": f"{name}[{variant}]", "route": "cuda",
+                    "source": source,
+                    "replaces": f"{REPLACES[name]} ({what})",
+                    "launches": n_launch,
+                    **kernels[f"{name}[{variant}]"]})
             if name != "fused_assign":
                 continue
             # ... and the exact float32 kernel A, on its "highest" fit
@@ -2445,15 +2566,11 @@ def main() -> int:
             if variant not in split:
                 continue
             # ... and the three-pass split, on its "high" fit
-            n_launch = split[variant]["tensor_core"][variant]
-            assert n_launch > 0, (name, variant, "high", split[variant])
-            report["kernels"].append({
-                "name": f"{name}[{variant}] high", "route": "cuda",
-                "source": SOURCES["fused_assign_tc3"],
-                "replaces": f"{REPLACES[name]} ({variant} variant, "
-                            f"ll_precision high: three bf16 passes)",
-                "launches": n_launch,
-                **kernels[f"{name}[{variant}] high"]})
+            assert split[variant]["tensor_core"][variant] > 0, (
+                name, variant, "high", split[variant])
+            split_rows(report, kernels, variant, split[variant],
+                       f"{variant} variant, ll_precision high: three bf16 "
+                       f"passes", " high")
     # kernel E's path is the build gate itself
     report["kernels"].append({
         "name": "build_gate[lane_iota]", "route": "cuda",
@@ -2479,17 +2596,45 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[kernel],
             "replaces": f"{REPLACES[kernel]} ({what})", "launches": n_launch,
             **kernels[name]})
-    log(f"whole run {time.perf_counter() - t_start:.1f} s")
-    print(smi)
-    print(json.dumps(report))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return report
+
+
+# kernel A's three-pass split at a pass width <= 128 (K <= 64) is
+# fused_assign_tc.cuh's kernel: the check that times it, by variant
+NARROW_SPLIT = {"precomputed": "fused_assign[precomputed] K=64",
+                "gaussian": "fused_assign[gaussian] K=64",
+                "multinomial": "fused_assign[multinomial]"}
+
+
+def split_rows(report: dict, kernels: dict, variant: str, counts: dict,
+               what: str, suffix: str) -> None:
+    """The report's rows of kernel A's three-pass split on one fit
+    (``counts``, :func:`run_fit`'s): the ring's launches (K > 64,
+    fused_assign_tc_ring.cuh) and the rest (K <= 64, fused_assign_tc.cuh's
+    kernel, built by fused_assign_tc3.cu), each with the check of its own
+    kernel."""
+    name = f"fused_assign[{variant}]{suffix}"
+    n_split = counts["tensor_core"][variant]
+    n_ring = counts["ring"][variant]
+    if n_ring:
+        report["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": SOURCES["fused_assign_tc_ring"],
+            "replaces": f"{REPLACES['fused_assign']} ({what}, pass width "
+                        f"256: K > 64)",
+            "launches": n_ring, **kernels[name]})
+    if n_split > n_ring:
+        report["kernels"].append({
+            "name": name + (" K<=64" if n_ring else ""), "route": "cuda",
+            "source": SOURCES["fused_assign_tc3"],
+            "replaces": f"{REPLACES['fused_assign']} ({what}, pass width "
+                        f"<= 128: K <= 64, fused_assign_tc.cuh)",
+            "launches": n_split - n_ring, **kernels[NARROW_SPLIT[variant]]})
 
 
 MODES = {"--kernel-a": kernel_a_main, "--kernel-b": kernel_b_main,
-         "--chain-quality": chain_quality_main, "--huge": huge_main}
+         "--chain-quality": chain_quality_main, "--huge": huge_main,
+         "--studies": studies_main}
 
 if __name__ == "__main__":
     argv = sys.argv[1:]

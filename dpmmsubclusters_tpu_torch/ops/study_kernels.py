@@ -14,9 +14,13 @@ plain PyTorch version.
 
 As in :mod:`.sweep_kernels`, a CUDA tensor launches the kernel (or raises),
 a CPU tensor runs the plain version, and each wrapper counts its launches
-(``column_sum.launches``; ``kernel_ablate.launches`` by stage set).
+(``column_sum.launches``; ``kernel_ablate.launches`` by stage set).  A
+launch is one call into the library: the scratch it needs is sized once per
+card and shape and kept per card and stream (:func:`_scratch`).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -58,6 +62,33 @@ def stage_key(stages) -> str:
     return _stage_set(stages)[0]
 
 
+# Floats of scratch a launch takes on card ``index`` (kernel C's partial
+# rows follow the card's SM count), asked of the library once per card and
+# shape: kernel C's over [n, f], kernel D's for a stage set ``mask``.
+@functools.lru_cache(maxsize=64)
+def _column_scratch(index: int, n: int, f: int) -> int:
+    return _build.load().dpmm_column_partials(n) * f
+
+
+@functools.lru_cache(maxsize=64)
+def _ablate_scratch(index: int, n: int, f: int, k: int, mask: int) -> int:
+    return _build.load().dpmm_ablate_scratch(n, f, k, mask)
+
+
+_SCRATCH = {}
+
+
+def _scratch(dev, stream: int, floats: int) -> torch.Tensor:
+    """Float32 scratch of at least ``floats`` on ``dev``, one buffer per
+    card and stream, kept between launches and grown when a launch needs
+    more (the launches of one stream run in order, so they can share it)."""
+    buf = _SCRATCH.get((dev, stream))
+    if buf is None or buf.numel() < floats:
+        buf = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
+        _SCRATCH[(dev, stream)] = buf
+    return buf
+
+
 # ---- kernel C ----------------------------------------------------------------
 def column_sum_reference(x, out=None):
     """Plain version of kernel C: every row of ``out`` ([R, F], [1, F] if
@@ -80,12 +111,11 @@ def column_sum(x, out=None):
         out = torch.empty((1, f), dtype=torch.float32, device=x.device)
     _check_cuda("column_sum", x=(x, torch.float32, (n, f)),
                 out=(out, torch.float32, (out.shape[0], f)))
-    lib = _build.load()
-    partial = torch.empty((lib.dpmm_column_partials(n), f),
-                          dtype=torch.float32, device=x.device)
-    rc = lib.dpmm_column_sum(x.data_ptr(), n, f, partial.data_ptr(),
-                             out.data_ptr(), out.shape[0],
-                             torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partial = _scratch(x.device, stream,
+                       _column_scratch(x.device.index, n, f))
+    rc = _build.load().dpmm_column_sum(x.data_ptr(), n, f, partial.data_ptr(),
+                                       out.data_ptr(), out.shape[0], stream)
     _build.check(rc, "column_sum")
     column_sum.launches += 1
     return out
@@ -189,15 +219,14 @@ def kernel_ablate(x, valid, phi, log_w, loglrw, seed, *, tile: int = 512,
     full = "stats" in stages or "stats_raw" in stages
     stats = (torch.empty if full else torch.zeros)(
         (2 * k, f), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    partial = torch.empty(lib.dpmm_ablate_scratch(n, f, k, mask),
-                          dtype=torch.float32, device=dev)
-    rc = lib.dpmm_kernel_ablate(
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = _scratch(dev, stream, _ablate_scratch(dev.index, n, f, k, mask))
+    rc = _build.load().dpmm_kernel_ablate(
         x.data_ptr(), valid.data_ptr(), phi.data_ptr(), log_w.data_ptr(),
         loglrw.data_ptr(), None if seed is None else seed.data_ptr(),
         int(tile), n, f, k, mask, 0,
         lab_st.data_ptr(), sub_st.data_ptr(), partial.data_ptr(),
-        stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        stats.data_ptr(), stream)
     _build.check(rc, "kernel_ablate")
     kernel_ablate.launches[key] += 1
     return labels, sub, stats

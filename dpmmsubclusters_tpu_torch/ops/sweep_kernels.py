@@ -48,7 +48,9 @@ operands to one bf16 pass only under ``"bf16"`` or for a bf16 cache
   ``gaussian``, ``multinomial``): the float32-faithful three-pass split
   (XLA's bf16x3: rows and phi each as a bf16 ``hi`` plus a bf16 ``lo``, and
   ``hi*hi + hi*lo + lo*hi``), three passes of the tensor cores
-  (``csrc/fused_assign_tc3.cu``; :func:`ll_route` says why);
+  (``csrc/fused_assign_tc3.cu``; :func:`ll_route` says why; at a pass width
+  of 256, K > 64, its kernel of ``csrc/fused_assign_tc_ring.cuh``, whose
+  launches are also counted in ``fused_assign.ring_launches``);
 * ``"highest"``: exact float32 (``csrc/fused_assign.cu``).
 
 The tensor-core launches are also counted in
@@ -547,6 +549,7 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     # another layout is copied into the port's for this call, with a
     # warning: the caller should lay it out once (pad_bf16_rows)
     tma = planes == 1 and family_name in _BF16 and k > 64
+    ring = planes == 2 and k > 64   # csrc/fused_assign_tc_ring.cuh's kernel
     if (tma and not _aligned_rows(x)) or (
             planes == 2 and family_name in _BF16 and x.data_ptr() % 16):
         warnings.warn(
@@ -586,6 +589,8 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
         fused_assign.tensor_core_launches[family_name] += 1
     if tma:
         fused_assign.tma_launches[family_name] += 1
+    if ring:
+        fused_assign.ring_launches[family_name] += 1
     return labels, sub, stats
 
 
@@ -596,6 +601,7 @@ def reset_launches() -> None:
                          if c != FIT_CTA_POINTS), 0)
     fused_assign.tensor_core_launches = dict.fromkeys(VARIANTS, 0)
     fused_assign.tma_launches = dict.fromkeys(_BF16, 0)
+    fused_assign.ring_launches = dict.fromkeys(VARIANTS, 0)
     stats_from_labels.launches = dict.fromkeys(STATS_VARIANTS, 0)
     key_sort.launches = 0
 

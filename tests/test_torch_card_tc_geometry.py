@@ -126,9 +126,14 @@ def test_tc_ragged_n_and_odd_tiles(rng, cuda, n, route):
 @pytest.mark.parametrize("k", [16, 17, 32, 33, 64, 65, 128, 129, 256])
 def test_tc_width_edges(rng, cuda, k, route):
     """Each pass width (32, 64, 128, 256 columns) at its largest K and one
-    past it (129: a second pass)."""
+    past it (129: a second pass); the three-pass split's four launches take
+    the ring (counted in ``ring_launches``) exactly at K > 64."""
+    sk.reset_launches()
     _check(*_case(rng, "precomputed", 1000, 8, k, cuda), "precomputed",
            route)
+    ring = 4 if route == "high" and k > 64 else 0
+    assert sk.fused_assign.ring_launches["precomputed"] == ring
+    assert sum(sk.fused_assign.ring_launches.values()) == ring
 
 
 @pytest.mark.gpu

@@ -339,9 +339,13 @@ def test_wrapper_refuses_unknown_precisions_and_study_blocks_off_f32():
 def test_cpu_wrapper_counts_no_tensor_core_launch(rng):
     x, phi_mat, log_w, valid = _case(rng, "gaussian", 8)
     before = dict(sk.fused_assign.tensor_core_launches)
+    before_ring = dict(sk.fused_assign.ring_launches)
     sk.fused_assign(*(torch.from_numpy(a) for a in (x, valid, phi_mat, log_w)),
                     3, family_name="gaussian", ll_precision="default")
     assert sk.fused_assign.tensor_core_launches == before
+    assert sk.fused_assign.ring_launches == before_ring
     sk.reset_launches()
     assert set(sk.fused_assign.tensor_core_launches) == set(sk.VARIANTS)
     assert not any(sk.fused_assign.tensor_core_launches.values())
+    assert set(sk.fused_assign.ring_launches) == set(sk.VARIANTS)
+    assert not any(sk.fused_assign.ring_launches.values())
