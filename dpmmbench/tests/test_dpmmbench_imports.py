@@ -1,0 +1,50 @@
+"""Nothing the benchmark runs imports JAX or the JAX package, and the
+reference imports nothing of the port; names compare as whole top-level
+names (the port's name begins with the JAX package's)."""
+from __future__ import annotations
+
+import ast
+import sys
+
+from tinybench import REPO
+
+BENCH = REPO / "dpmmbench"
+
+
+def imported(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_the_reference_imports_nothing_of_the_port():
+    for path in (BENCH / "reference").rglob("*.py"):
+        names = set(imported(path))
+        assert "dpmmsubclusters_tpu_torch" not in names, path
+        assert not names & {"jax", "jaxlib", "flax", "dpmmsubclusters_tpu"}
+
+
+def test_only_system_imports_the_port_and_nothing_imports_jax():
+    for path in BENCH.rglob("*.py"):
+        if "tests" in path.parts:
+            continue
+        names = set(imported(path))
+        assert not names & {"jax", "jaxlib", "flax", "dpmmsubclusters_tpu"}
+        if path.name != "system.py":
+            assert "dpmmsubclusters_tpu_torch" not in names, path
+
+
+def test_the_guard_compares_whole_top_level_names(monkeypatch):
+    from dpmmbench import harness
+
+    monkeypatch.setitem(sys.modules, "dpmmsubclusters_tpu_torch_x",
+                        sys.modules[__name__])
+    assert harness.forbidden_modules() == []
+    monkeypatch.setitem(sys.modules, "jax.numpy", sys.modules[__name__])
+    monkeypatch.setitem(sys.modules, "dpmmsubclusters_tpu.ops",
+                        sys.modules[__name__])
+    assert harness.forbidden_modules() == ["dpmmsubclusters_tpu.ops",
+                                           "jax.numpy"]
