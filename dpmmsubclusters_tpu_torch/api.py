@@ -32,6 +32,7 @@ from .priors import GAUSSIAN, MULTINOMIAL
 from .sampler.driver import (DPMMEngine, DPMMState, IterStats, desired_tier,
                              migrate, run_loop, tier_sequence)
 from .sampler.table import log_posterior as _table_log_posterior
+from .utils import profiling
 
 _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
 
@@ -432,43 +433,47 @@ def _fit(x: np.ndarray, alpha, prior, family, device, outlier_prior,
          layout: Optional[RowLayout] = None) -> FitResult:
     """``fit`` (``layout`` None) and ``fit_distributed`` (this rank's
     layout) on this process's rows ``x``."""
-    n, d = x.shape
-    cfg = config if config is not None else DPMMConfig()
-    if alpha is not None:
-        overrides.setdefault("alpha", float(alpha))
-    if overrides:
-        cfg = cfg.replace(**overrides)
-    dev = _resolve_device(device)
+    with profiling.span("entry.fit", phases=True) as fit_span:
+        n, d = x.shape
+        cfg = config if config is not None else DPMMConfig()
+        if alpha is not None:
+            overrides.setdefault("alpha", float(alpha))
+        if overrides:
+            cfg = cfg.replace(**overrides)
+        dev = _resolve_device(device)
 
-    fam = _resolve_family(family, prior)
-    prior = (fam.default_prior(d) if prior is None
-             else _validate_prior(fam, prior, d))
-    if outlier_prior is not None:
-        outlier_prior = _validate_prior(fam, outlier_prior, d,
-                                        name="outlier_prior")
-    lay = RowLayout() if layout is None else layout
-    x, prior, outlier_prior, shift, scale = _standardize(
-        fam, cfg, x, prior, outlier_prior, lay)
+        fam = _resolve_family(family, prior)
+        prior = (fam.default_prior(d) if prior is None
+                 else _validate_prior(fam, prior, d))
+        if outlier_prior is not None:
+            outlier_prior = _validate_prior(fam, outlier_prior, d,
+                                            name="outlier_prior")
+        lay = RowLayout() if layout is None else layout
+        with profiling.span("entry.standardize"):
+            x, prior, outlier_prior, shift, scale = _standardize(
+                fam, cfg, x, prior, outlier_prior, lay)
 
-    # the cache is per rank: the largest rank's rows decide, alike on all
-    cfg = _resolve_precompute(fam, cfg, max(lay.counts, default=n), d)
-    k_start, tiers = _tier_setup(cfg)
-    engine = DPMMEngine(fam, cfg.replace(k_max=int(k_start)), dev, lay)
-    points, valid, n_total = engine.shard_points(x)
-    seed = lay.first(cfg.seed if cfg.seed is not None
-                     else int(np.random.randint(0, 2**31 - 1)))
-    if cfg.precompute_features:
-        points = engine.featurize(points, seed=seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    state = engine.init_state(gen, points, valid, prior, outlier_prior)
-    state, hist = run_loop(
-        engine, state, points, valid, n_total, cfg.iters,
-        gt=np.asarray(gt) if gt is not None else None, n_valid=n,
-        callback=_save_callback(fam, cfg, shift, n, scale, seed, layout),
-        verbose=None if layout is None else False, tiers=tiers,
-    )
-    model = _model_from_state(fam, cfg, state, shift, n, scale, seed,
-                              int(n_total))
+        # the cache is per rank: the largest rank's rows decide, alike on
+        # all
+        cfg = _resolve_precompute(fam, cfg, max(lay.counts, default=n), d)
+        k_start, tiers = _tier_setup(cfg)
+        engine = DPMMEngine(fam, cfg.replace(k_max=int(k_start)), dev, lay)
+        points, valid, n_total = engine.shard_points(x)
+        seed = lay.first(cfg.seed if cfg.seed is not None
+                         else int(np.random.randint(0, 2**31 - 1)))
+        if cfg.precompute_features:
+            points = engine.featurize(points, seed=seed)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = engine.init_state(gen, points, valid, prior, outlier_prior)
+        state, hist = run_loop(
+            engine, state, points, valid, n_total, cfg.iters,
+            gt=np.asarray(gt) if gt is not None else None, n_valid=n,
+            callback=_save_callback(fam, cfg, shift, n, scale, seed, layout),
+            verbose=None if layout is None else False, tiers=tiers,
+        )
+        model = _model_from_state(fam, cfg, state, shift, n, scale, seed,
+                                  int(n_total))
+    hist.phases = profiling.phases(fit_span)
     return FitResult(model=model, history=hist)
 
 

@@ -35,9 +35,10 @@ import torch
 from ..config import DPMMConfig
 from ..ops import sweep_kernels
 from ..parallel.distributed import RowLayout
+from ..utils import profiling
 from . import assign as assign_mod
 from . import moves as moves_mod
-from .smart import smart_sublabels
+from . import smart as smart_mod
 from .sweep import make_smart_pass, make_sweep
 from .table import (active_count, compute_posteriors, data_dim, init_table,
                     retier)
@@ -123,13 +124,17 @@ class DPMMState:
 @dataclasses.dataclass
 class IterStats:
     """Per-iteration history (run_model's histories): cluster count, log
-    posterior, wall time and, with ground truth, NMI and VI."""
+    posterior, wall time and, with ground truth, NMI and VI; and ``phases``,
+    the seconds of a fit's always-on spans by name (``entry.fit`` and the
+    spans under it, :func:`..utils.profiling.phases`; empty for a
+    resume)."""
 
     k: list
     log_posterior: list
     times: list
     nmi: list
     vi: list
+    phases: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def empty():
@@ -160,16 +165,17 @@ class DPMMEngine:
         the layout's ``n_pad`` with invalid zero rows and ``n_total`` is
         the global count of real rows; in one process every row is
         valid."""
-        x = torch.as_tensor(np.ascontiguousarray(x, np.float32))
-        n, lay = x.shape[0], self.layout
-        if lay.world == 1:
-            valid = torch.ones(n, dtype=torch.bool, device=self.device)
-            return x.to(self.device), valid, float(n)
-        points = torch.zeros((lay.n_pad, x.shape[1]), dtype=torch.float32,
-                             device=self.device)
-        points[:n] = x.to(self.device)
-        valid = torch.arange(lay.n_pad, device=self.device) < n
-        return points, valid, float(lay.n_global)
+        with profiling.span("entry.transfer"):
+            x = torch.as_tensor(np.ascontiguousarray(x, np.float32))
+            n, lay = x.shape[0], self.layout
+            if lay.world == 1:
+                valid = torch.ones(n, dtype=torch.bool, device=self.device)
+                return x.to(self.device), valid, float(n)
+            points = torch.zeros((lay.n_pad, x.shape[1]),
+                                 dtype=torch.float32, device=self.device)
+            points[:n] = x.to(self.device)
+            valid = torch.arange(lay.n_pad, device=self.device) < n
+            return points, valid, float(lay.n_global)
 
     def featurize(self, points: torch.Tensor, seed: int = 0):
         """The feature cache (for the Gaussian family rows [1, x, triu(x
@@ -186,16 +192,17 @@ class DPMMEngine:
           statistics are built in f32 from the raw points, held as they
           are (not copied)."""
         dt = self.cfg.feature_dtype
-        if dt == "float32":
-            return self.family.features(points)
         if dt == "hybrid" and self.family.name != "gaussian":
             raise ValueError(
                 "feature_dtype='hybrid' requires the gaussian family (its "
                 "statistics are the Gaussian rows built from the raw "
                 f"points); got family {self.family.name!r}")
-        feat = bf16_features(self.family, points, seed,
-                             self.layout.row_start)
-        return {"feat": feat, "raw": points} if dt == "hybrid" else feat
+        with profiling.span("cache_build.featurize"):
+            if dt == "float32":
+                return self.family.features(points)
+            feat = bf16_features(self.family, points, seed,
+                                 self.layout.row_start)
+            return {"feat": feat, "raw": points} if dt == "hybrid" else feat
 
     # -- state --------------------------------------------------------------
     def _stats(self, points, valid, labels, sublabels, k: int):
@@ -211,46 +218,49 @@ class DPMMEngine:
         the first clusters and the first parameter draw (reference
         ``init_model_from_data`` + ``init_first_clusters!``,
         src/dp-parallel-sampling.jl:36-78)."""
-        cfg, family = self.cfg, self.family
-        n = valid.shape[0]
-        d = data_dim(prior)
-        offset = 1 if cfg.outlier_mod > 0 else 0
-        # per-point draws of the replicated generator (the global padded
-        # length across ranks, this rank's slice)
-        def draw(lo, hi):
-            return self.layout.per_point(
-                lambda m: torch.randint(lo, hi, (m,), generator=gen,
-                                        device=self.device,
-                                        dtype=torch.int32), n)
+        with profiling.span("entry.init_state"):
+            cfg, family = self.cfg, self.family
+            n = valid.shape[0]
+            d = data_dim(prior)
+            offset = 1 if cfg.outlier_mod > 0 else 0
+            # per-point draws of the replicated generator (the global padded
+            # length across ranks, this rank's slice)
+            def draw(lo, hi):
+                return self.layout.per_point(
+                    lambda m: torch.randint(lo, hi, (m,), generator=gen,
+                                            device=self.device,
+                                            dtype=torch.int32), n)
 
-        labels = draw(offset, offset + cfg.init_clusters)
-        sublabels = draw(0, 2)
-        if init_labels is not None:
-            labels = torch.as_tensor(
-                np.asarray(init_labels, np.int32) + offset).to(self.device)
+            labels = draw(offset, offset + cfg.init_clusters)
+            sublabels = draw(0, 2)
+            if init_labels is not None:
+                labels = torch.as_tensor(np.asarray(init_labels, np.int32)
+                                         + offset).to(self.device)
 
-        flat3 = self._stats(points, valid, labels, sublabels, cfg.k_max)
-        if self._smart_on:
-            stats = family.stats_from_flat(flat3, d)
-            stats_w = {name: a[:, 0] for name, a in stats.items()}
-            sublabels = smart_sublabels(
-                assign_mod.raw_points(points, d, self._x_is_features), valid,
-                labels, sublabels, stats_w, stats_w["n"] > 0,
-                cfg.max_split_iter, reduce=self.layout.reduce)
             flat3 = self._stats(points, valid, labels, sublabels, cfg.k_max)
+            if self._smart_on:
+                stats = family.stats_from_flat(flat3, d)
+                stats_w = {name: a[:, 0] for name, a in stats.items()}
+                with profiling.span("table_math.smart"):
+                    sublabels = smart_mod.smart_sublabels(
+                        assign_mod.raw_points(points, d, self._x_is_features),
+                        valid, labels, sublabels, stats_w, stats_w["n"] > 0,
+                        cfg.max_split_iter, reduce=self.layout.reduce)
+                    flat3 = self._stats(points, valid, labels, sublabels,
+                                        cfg.k_max)
 
-        prior = {k: v.to(self.device) for k, v in prior.items()}
-        if outlier_prior is not None:
-            outlier_prior = {k: v.to(self.device)
-                             for k, v in outlier_prior.items()}
-        table = init_table(family, prior, outlier_prior, cfg, d,
-                           device=self.device)
-        table = compute_posteriors(
-            family, {**table, "stats": family.stats_from_flat(flat3, d)})
-        table = moves_mod.sample_params_step(gen, table, cfg.alpha,
-                                             cfg.outlier_mod, family)
-        return DPMMState(table=table, labels=labels, sublabels=sublabels,
-                         gen=gen, step=0)
+            prior = {k: v.to(self.device) for k, v in prior.items()}
+            if outlier_prior is not None:
+                outlier_prior = {k: v.to(self.device)
+                                 for k, v in outlier_prior.items()}
+            table = init_table(family, prior, outlier_prior, cfg, d,
+                               device=self.device)
+            table = compute_posteriors(
+                family, {**table, "stats": family.stats_from_flat(flat3, d)})
+            table = moves_mod.sample_params_step(gen, table, cfg.alpha,
+                                                 cfg.outlier_mod, family)
+            return DPMMState(table=table, labels=labels, sublabels=sublabels,
+                             gen=gen, step=0)
 
     # -- sweeps -------------------------------------------------------------
     def step(self, state: DPMMState, points, valid, n_total, final: bool,
@@ -267,21 +277,24 @@ class DPMMEngine:
         """``len(finals)`` sweeps, then one smart sub-label pass for the
         slots born in the block; metrics come back stacked [B] on the
         device."""
-        cap = self.cfg.max_clusters
-        ms = []
-        for f, nm in zip(finals, no_more_splits):
-            if cap is not None and not nm:
-                nm = int(active_count(state.table)) >= cap
-            state, m = self.step(state, points, valid, n_total, bool(f),
-                                 bool(nm))
-            ms.append(m)
-        if self._smart is not None:
-            table, sublabels = self._smart(state.table, state.labels,
-                                           state.sublabels, points, valid)
-            state = DPMMState(table, state.labels, sublabels, state.gen,
-                              state.step)
-        metrics = {name: torch.stack([m[name] for m in ms]) for name in ms[0]}
-        return state, metrics
+        with profiling.span("host_loop.step_block"):
+            cap = self.cfg.max_clusters
+            ms = []
+            for f, nm in zip(finals, no_more_splits):
+                if cap is not None and not nm:
+                    nm = profiling.host_read(active_count(state.table),
+                                             "cap_check") >= cap
+                state, m = self.step(state, points, valid, n_total, bool(f),
+                                     bool(nm))
+                ms.append(m)
+            if self._smart is not None:
+                table, sublabels = self._smart(state.table, state.labels,
+                                               state.sublabels, points, valid)
+                state = DPMMState(table, state.labels, sublabels, state.gen,
+                                  state.step)
+            metrics = {name: torch.stack([m[name] for m in ms])
+                       for name in ms[0]}
+            return state, metrics
 
     def smart_refresh(self, state: DPMMState, points, valid) -> DPMMState:
         """The smart sub-label pass of :meth:`step_block` on its own, for
@@ -307,11 +320,12 @@ def _tier_step(family, state: DPMMState, k_now: int,
                tiers: list) -> DPMMState:
     """Migrate the table to ``desired_tier``, never below the live
     clusters."""
-    cur = state.table["active"].shape[0]
-    want = desired_tier(k_now, cur, tiers)
-    if want < k_now:
-        want = cur
-    return migrate(family, state, want) if want != cur else state
+    with profiling.span("host_loop.tier_step"):
+        cur = state.table["active"].shape[0]
+        want = desired_tier(k_now, cur, tiers)
+        if want < k_now:
+            want = cur
+        return migrate(family, state, want) if want != cur else state
 
 
 def run_loop(engine: DPMMEngine, state: DPMMState, points, valid, n_total,
@@ -351,11 +365,13 @@ def run_loop(engine: DPMMEngine, state: DPMMState, points, valid, n_total,
         t0 = time.perf_counter()
         state, metrics = engine.step_block(state, points, valid, n_total,
                                            finals, nms)
-        ks = metrics["k"].tolist()                 # the block's fence
+        ks = profiling.host_read(metrics["k"], "block_fence")
         dt = time.perf_counter() - t0
+        profiling.resolve()
         it += b
         hist.k.extend(int(k) for k in ks)
-        hist.log_posterior.extend(metrics["log_posterior"].tolist())
+        hist.log_posterior.extend(
+            profiling.host_read(metrics["log_posterior"], "log_posterior"))
         hist.times.extend([dt / b] * b)
         if gt is not None:
             from ..utils.metrics import nmi as nmi_fn, varinfo
@@ -380,7 +396,7 @@ def _run_each(engine: DPMMEngine, state: DPMMState, points, valid, n_total,
     cfg = engine.cfg
     cap = cfg.max_clusters
     hist = IterStats.empty()
-    k_now = int(active_count(state.table))
+    k_now = profiling.host_read(active_count(state.table), "sweep_fence")
     for it in range(first_iter, iters):
         t0 = time.perf_counter()
         if tiers is not None:
@@ -392,10 +408,12 @@ def _run_each(engine: DPMMEngine, state: DPMMState, points, valid, n_total,
                           or (cap is not None and k_now >= cap))
         state, metrics = engine.step(state, points, valid, n_total, final,
                                      no_more_splits)
-        k_now = int(metrics["k"])                  # the sweep's fence
+        k_now = profiling.host_read(metrics["k"], "sweep_fence")
         dt = time.perf_counter() - t0
+        profiling.resolve()
         hist.k.append(k_now)
-        hist.log_posterior.append(float(metrics["log_posterior"]))
+        hist.log_posterior.append(
+            profiling.host_read(metrics["log_posterior"], "log_posterior"))
         hist.times.append(dt)
         if gt is not None:
             from ..utils.metrics import nmi as nmi_fn, varinfo

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
+
 
 def _power(mat: torch.Tensor, v: torch.Tensor, iters: int) -> torch.Tensor:
     for _ in range(iters):
@@ -68,7 +70,8 @@ def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
     points [N, D] raw points; valid bool [N]; labels/sublabels int32 [N];
     stats_w whole-side stats (n [K], sum_x [K, D], sum_xx [K, D, D]);
     slots_mask bool [K].  The Lloyd loop checks its movement tolerance on
-    the host (one sync per iteration, at most ``max_iter``).  Across ranks
+    the host (one sync per iteration, at most ``max_iter``, and one for the
+    tolerance).  Across ranks
     ``reduce`` sums the per-slot sums over ranks (the projection moments
     and each Lloyd step's), so the tolerance and the movement the host
     reads are the same on every rank."""
@@ -100,7 +103,8 @@ def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
 
     # 1-D 2-means converges in a handful of iterations; the movement
     # tolerance is relative to the projection spread
-    tol = 1e-3 * float(torch.clamp(std.max(), min=1e-12))
+    tol = 1e-3 * profiling.host_read(torch.clamp(std.max(), min=1e-12),
+                                     "smart_tol")
     for _ in range(max_iter):
         side = sides(m)
         s = reduce(_slot_sums(lab, torch.stack(
@@ -112,7 +116,7 @@ def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
             torch.where(s[:, 1] > 0, s[:, 3] / torch.clamp(s[:, 1], min=1.0),
                         m[:, 1]),
         ], dim=-1)
-        move = float((m2 - m).abs().max())
+        move = profiling.host_read((m2 - m).abs().max(), "smart_lloyd")
         m = m2
         if not move > tol:
             break

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import assign as assign_mod
 from . import moves
 from . import smart as smart_mod
@@ -54,17 +55,19 @@ def make_smart_pass(family, cfg, layout):
 
     def smart_pass(table, labels, sublabels, points, valid):
         mask = table["needs_smart"] & table["active"] & ~table["is_outlier"]
-        if not bool(mask.any()):
+        if not profiling.host_read(mask.any(), "smart_needed"):
             return table, sublabels
-        d = data_dim(table["prior"])
-        stats_w = {name: a[:, 0] for name, a in table["stats"].items()}
-        sub2 = smart_mod.smart_sublabels(
-            assign_mod.raw_points(points, d, x_is_features), valid, labels,
-            sublabels, stats_w, mask, cfg.max_split_iter,
-            reduce=layout.reduce)
-        table = _stats_pass(family, table, points, valid, labels, sub2,
-                            x_is_features, layout)
-        return {**table, "needs_smart": table["needs_smart"] & ~mask}, sub2
+        with profiling.span("table_math.smart"):
+            d = data_dim(table["prior"])
+            stats_w = {name: a[:, 0] for name, a in table["stats"].items()}
+            sub2 = smart_mod.smart_sublabels(
+                assign_mod.raw_points(points, d, x_is_features), valid,
+                labels, sublabels, stats_w, mask, cfg.max_split_iter,
+                reduce=layout.reduce)
+            table = _stats_pass(family, table, points, valid, labels, sub2,
+                                x_is_features, layout)
+            return ({**table, "needs_smart": table["needs_smart"] & ~mask},
+                    sub2)
 
     return smart_pass
 
@@ -93,7 +96,7 @@ def make_sweep(family, cfg, layout):
         flagged slots get fresh Bernoulli(1/2) sub-labels and the statistics
         are recomputed from realized labels (reset_bad_clusters! /
         split_cluster_local_worker!, :265-278,481-516)."""
-        if not bool(flag):
+        if not profiling.host_read(flag, "exact_flag"):
             return table, sublabels
         fresh = layout.per_point(
             lambda m: torch.randint(0, 2, (m,), generator=gen,
@@ -107,55 +110,64 @@ def make_sweep(family, cfg, layout):
 
     def sweep(table, labels, sublabels, gen, points, valid, n_total,
               final: bool, no_more_splits: bool):
+        profiling.count("sweeps")
         # A: parameter draws
-        table = moves.sample_params_step(
-            gen, table, alpha, outlier_mod, family,
-            reference_gate=bool(cfg.reference_splittable_gate),
-            freeze_outlier=freeze_outlier,
-        )
+        with profiling.span("table_math.sample_params", detail=True):
+            table = moves.sample_params_step(
+                gen, table, alpha, outlier_mod, family,
+                reference_gate=bool(cfg.reference_splittable_gate),
+                freeze_outlier=freeze_outlier,
+            )
 
         # C + D + E: fused assignment & statistics (kernel A); the seed
         # stays on the device so drawing it needs no sync
         seed = torch.randint(0, 2**31 - 1, (1,), generator=gen,
                              device=valid.device, dtype=torch.int32)
-        labels, sublabels, stats_lr = assign_mod.assign_and_stats(
-            points, valid, table["params"]["phi"], table["log_weights"],
-            torch.log(torch.clamp(table["lr_weights"], min=1e-37)),
-            seed, bool(final or cfg.hard_clustering), layout.tile_off,
-            family=family, x_is_features=x_is_features,
-            ll_precision=cfg.ll_precision,
-        )
+        with profiling.span("kernel_a.assign_and_stats", detail=True):
+            labels, sublabels, stats_lr = assign_mod.assign_and_stats(
+                points, valid, table["params"]["phi"], table["log_weights"],
+                torch.log(torch.clamp(table["lr_weights"], min=1e-37)),
+                seed, bool(final or cfg.hard_clustering), layout.tile_off,
+                family=family, x_is_features=x_is_features,
+                ll_precision=cfg.ll_precision,
+            )
         table = _set_stats(family, table,
                            assign_mod.lr_to_full(layout.reduce(stats_lr)))
 
-        # F: reset clusters with an empty sub-cluster
-        table, any_bad, bad = moves.reset_bad(table, family)
-        if cfg.exact_post_move_stats:
-            table, sublabels = redraw_and_recompute(
-                gen, any_bad, bad, table, labels, sublabels, points, valid)
-
-        # G: split + merge moves, sharing one [K, 3] log-marginal evaluation
-        # (slots whose stats change in between are merge-ineligible)
-        if not no_more_splits:
-            k_slots = table["active"].shape[0]
-            mask3 = table["active"][:, None].expand(k_slots, 3)
-            lm3 = family.log_marginal(
-                side_tile(table["prior"]), table["post"], table["stats"],
-                mask3, cache=family.posterior_cache(table["post"], mask3),
-            )
-            table, labels, sublabels, any_split, touched = moves.split_move(
-                gen, table, labels, sublabels, alpha, final, family, lm=lm3)
+        # F-H: the moves, timed as one span with the shared evaluation
+        with profiling.span("table_math.moves", detail=True):
+            # F: reset clusters with an empty sub-cluster
+            table, any_bad, bad = moves.reset_bad(table, family)
             if cfg.exact_post_move_stats:
                 table, sublabels = redraw_and_recompute(
-                    gen, any_split, touched, table, labels, sublabels,
-                    points, valid)
-            table, labels, sublabels = moves.merge_move(
-                gen, table, labels, sublabels, alpha, final, family,
-                lm_w=lm3[:, 0], candidates=cfg.merge_candidates,
-            )
+                    gen, any_bad, bad, table, labels, sublabels, points,
+                    valid)
 
-        # H: drop empty slots
-        table = moves.remove_empty(table, outlier_mod)
+            # G: split + merge moves, sharing one [K, 3] log-marginal
+            # evaluation (slots whose stats change in between are
+            # merge-ineligible)
+            if not no_more_splits:
+                k_slots = table["active"].shape[0]
+                mask3 = table["active"][:, None].expand(k_slots, 3)
+                lm3 = family.log_marginal(
+                    side_tile(table["prior"]), table["post"],
+                    table["stats"], mask3,
+                    cache=family.posterior_cache(table["post"], mask3),
+                )
+                (table, labels, sublabels, any_split,
+                 touched) = moves.split_move(gen, table, labels, sublabels,
+                                             alpha, final, family, lm=lm3)
+                if cfg.exact_post_move_stats:
+                    table, sublabels = redraw_and_recompute(
+                        gen, any_split, touched, table, labels, sublabels,
+                        points, valid)
+                table, labels, sublabels = moves.merge_move(
+                    gen, table, labels, sublabels, alpha, final, family,
+                    lm_w=lm3[:, 0], candidates=cfg.merge_candidates,
+                )
+
+            # H: drop empty slots
+            table = moves.remove_empty(table, outlier_mod)
         metrics = {
             "k": active_count(table),
             "log_posterior": (

@@ -275,19 +275,6 @@ def test_profiling_trace_writes_a_chrome_trace(tmp_path):
     assert "aten::mm" in files[0].read_text()
 
 
-def test_step_timer_accumulates_sections():
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        with timer.section("a", sync=True):
-            pass
-    with timer.section("bb"):
-        pass
-    assert set(timer.totals) == {"a", "bb"} and timer.totals["a"] >= 0.0
-    lines = timer.report().splitlines()
-    assert len(lines) == 2 and lines[0].startswith("a  ")
-    assert lines[0].endswith(" ms")
-
-
 def test_median_ms_and_card_on_the_cpu():
     calls = []
     ms = profiling.median_ms(lambda: calls.append(1), "cpu", reps=3)
