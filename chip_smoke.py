@@ -1685,6 +1685,8 @@ def run_fit(torch, name: str, x, gt, variant, **kw) -> dict:
     # fused_assign_tc_ring.cuh
     counts["tma"] = dict(sk.fused_assign.tma_launches)
     counts["ring"] = dict(sk.fused_assign.ring_launches)
+    # the smart pass's exact per-slot sums on kernel B (sampler/smart.py)
+    counts["slot_sums"] = sk.slot_sums.launches
     nmi = dpmm.nmi(gt, res.labels)
     ms_sweep = float(np.median(res.history.times[-40:])) * 1e3
     cache = (f", cache ({res.model.cfg.feature_dtype}) built in "
@@ -2286,7 +2288,7 @@ def run_distributed(torch, ref: dict, smi: str) -> dict:
 
 
 # the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
-CARD_TESTS = 256
+CARD_TESTS = 266
 
 
 def run_card_tests(smi: str) -> int:

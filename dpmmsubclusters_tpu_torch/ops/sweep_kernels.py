@@ -8,6 +8,8 @@
   the same statistics from given labels.  Replaces
   ``dpmmsubclusters_tpu.ops.pallas_sweep.stats_from_labels``.  Its first
   phase, the per-chunk key sort, is also callable alone (:func:`key_sort`).
+  :func:`slot_sums` runs it on whole-number rows and adds its chunk
+  partials in int64: exact per-slot sums, for the smart pass.
 
 Both take flat ``int32 [N]`` label streams and, as the JAX functions do, a
 ``family_name`` that says what the rows ``x`` are:
@@ -96,6 +98,9 @@ BF16_ROW_ALIGN = 8
 # layout: warps a chunk, and the most buckets whose tables fit in shared
 # memory (csrc/dpmm_kernels.cuh holds the same constants)
 STATS_CHUNK = 16384
+# the most bits of a whole-number row value whose chunk sums kernel B adds
+# exactly: STATS_CHUNK * (2**LIMB_BITS - 1) < 2**24
+LIMB_BITS = 24 - (STATS_CHUNK.bit_length() - 1)
 _SORT_WARPS = 8
 _SORT_SMEM_BUCKETS = 48 * 1024 // (4 * (_SORT_WARPS + 1))
 
@@ -425,6 +430,39 @@ def stats_from_labels(x, labels, sub, valid, k: int,
     if x.device.type == "cpu":
         return stats_from_labels_reference(x, labels, sub, valid, k,
                                            family_name)
+    stats = _launch_stats(x, labels, sub, valid, k, family_name)
+    stats_from_labels.launches[family_name] += 1
+    return stats
+
+
+def slot_sums(rows, labels, valid, k: int):
+    """``int64 [K, C]`` exact sums of the float32 rows ``rows [N, C]``,
+    whole numbers below ``2**LIMB_BITS`` in magnitude, by ``labels int32
+    [N]``, rows masked by ``valid bool [N]``; a label outside [0, k) adds
+    nothing.  On the card, kernel B's ``"precomputed"`` route with every
+    sub-label 0: a chunk's float32 sums of such rows are whole numbers
+    below 2**24, so exact, and the chunk partials are added here in int64,
+    so the sums do not depend on the rows' order or on where ranks split
+    them.  Counted in ``slot_sums.launches``, apart from
+    ``stats_from_labels.launches``."""
+    if rows.device.type == "cpu":
+        keep = valid & (labels >= 0) & (labels < k)
+        return torch.zeros((k, rows.shape[1]), dtype=torch.int64).index_add_(
+            0, labels[keep].long(), rows[keep].to(torch.int64))
+    n, f = rows.shape
+    scratch = _stats_scratch(n, k, f, rows.device)
+    n_part = stats_scratch_sizes(n, k, f)[0]
+    scratch[:n_part].zero_()        # a key absent from a chunk writes none
+    _launch_stats(rows, labels, torch.zeros_like(labels), valid, k,
+                  "precomputed", scratch)
+    slot_sums.launches += 1
+    return scratch[:n_part].view(-1, 2 * k, f)[:, :k].to(torch.int64).sum(0)
+
+
+def _launch_stats(x, labels, sub, valid, k: int, family_name: str,
+                  scratch=None):
+    """Kernel B on CUDA tensors (see :func:`stats_from_labels`), in
+    ``scratch`` (:func:`stats_scratch_sizes`) when given."""
     n = x.shape[0]
     pairs, d, f = _rows_arg(x, family_name)
     bf16 = family_name == "bfloat16"
@@ -434,7 +472,8 @@ def stats_from_labels(x, labels, sub, valid, k: int,
                 sub=(sub, torch.int32, (n,)),
                 valid=(valid, torch.bool, (n,)))
     stats = torch.empty((2 * k, f), dtype=torch.float32, device=x.device)
-    scratch = _stats_scratch(n, k, f, x.device)
+    if scratch is None:
+        scratch = _stats_scratch(n, k, f, x.device)
     lib = _build.load()
     tail = (labels.data_ptr(), sub.data_ptr(), valid.data_ptr(), n, f, k,
             scratch.data_ptr(), stats.data_ptr(),
@@ -445,7 +484,6 @@ def stats_from_labels(x, labels, sub, valid, k: int,
     else:
         rc = lib.dpmm_stats_from_labels(x.data_ptr(), _ptr(pairs), d, *tail)
     _build.check(rc, "stats_from_labels")
-    stats_from_labels.launches[family_name] += 1
     return stats
 
 
@@ -603,6 +641,7 @@ def reset_launches() -> None:
     fused_assign.tma_launches = dict.fromkeys(_BF16, 0)
     fused_assign.ring_launches = dict.fromkeys(VARIANTS, 0)
     stats_from_labels.launches = dict.fromkeys(STATS_VARIANTS, 0)
+    slot_sums.launches = 0
     key_sort.launches = 0
 
 

@@ -34,7 +34,9 @@ what ``fit`` draws.
 
 The order of the sums.  Each rank's kernels sum their rows in a fixed
 order and the ``all_reduce`` adds the ranks' sums; every rank receives the
-same bits.  Labels across rank counts are bit-identical only where the
+same bits.  The smart pass's sums on a card are exact at any split
+(``smart._exact_slot_sums``, which takes :meth:`RowLayout.reduce_max`
+too).  Labels across rank counts are bit-identical only where the
 float32 sums are exact (integer data, such as the 4-corner gate), as the
 JAX package's ``tests/test_fit_e2e.py::test_single_device_matches_multi``
 says of its mesh sizes; elsewhere the chains agree in distribution.
@@ -132,14 +134,24 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over every rank, on ``t``'s device (the identity in
     a world of one).  A tensor on a device the backend does not take (a
     card's under gloo, the host's under NCCL) is copied there and back."""
+    return _all_reduce(t, tdist.ReduceOp.SUM)
+
+
+def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise largest of ``t`` over every rank, as
+    :func:`all_reduce_sum` gives the sum."""
+    return _all_reduce(t, tdist.ReduceOp.MAX)
+
+
+def _all_reduce(t: torch.Tensor, op) -> torch.Tensor:
     if world() == 1:
         return t
     comm = _comm_device()
     if t.device == comm:
-        tdist.all_reduce(t)
+        tdist.all_reduce(t, op)
         return t
     staged = t.to(comm)
-    tdist.all_reduce(staged)
+    tdist.all_reduce(staged, op)
     return staged.to(t.device)
 
 
@@ -210,6 +222,10 @@ class RowLayout:
     def reduce(self, t: torch.Tensor) -> torch.Tensor:
         """:func:`all_reduce_sum` of ``t`` across this layout's ranks."""
         return all_reduce_sum(t) if self.world > 1 else t
+
+    def reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """:func:`all_reduce_max` of ``t`` across this layout's ranks."""
+        return all_reduce_max(t) if self.world > 1 else t
 
     def per_point(self, draw: Callable[[int], torch.Tensor],
                   n: int) -> torch.Tensor:

@@ -245,7 +245,7 @@ class DPMMEngine:
                     sublabels = smart_mod.smart_sublabels(
                         assign_mod.raw_points(points, d, self._x_is_features),
                         valid, labels, sublabels, stats_w, stats_w["n"] > 0,
-                        cfg.max_split_iter, reduce=self.layout.reduce)
+                        cfg.max_split_iter, layout=self.layout)
                     flat3 = self._stats(points, valid, labels, sublabels,
                                         cfg.k_max)
 

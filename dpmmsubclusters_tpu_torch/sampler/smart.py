@@ -4,14 +4,15 @@ PyTorch counterpart of :mod:`dpmmsubclusters_tpu.sampler.smart`
 (reference ``smart_cluster_init!``, src/local_clusters_actions.jl:555-653),
 for every marked slot at once: top eigenvector of each slot's covariance by
 power iteration, per-point projection, 2-means seeded at mean +/- std, and
-Lloyd iterations.  The per-slot sums are ``index_add_`` reductions (the JAX
-version's chunked one-hot matmuls exist for the TPU's scatter cost), in
-torch's deterministic mode so that a seed gives one trajectory on a card.
+Lloyd iterations.  The per-slot sums are ``index_add_`` on the host and
+exact fixed-point sums on kernel B on a card (the JAX version's chunked
+one-hot matmuls exist for the TPU's scatter cost).
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops import sweep_kernels as sk
 from ..utils import profiling
 
 
@@ -44,26 +45,88 @@ def top_eigvec(mat: torch.Tensor, iters: int = 25) -> torch.Tensor:
     return torch.where(better[:, None], v2, v1)
 
 
-def _slot_sums(labels: torch.Tensor, vals: torch.Tensor, k: int):
-    """[K, C] per-slot sums of the [N, C] rows ``vals``, in an order fixed
-    run to run: on a card the default ``index_add_`` adds with float
-    atomics, whose order (and so the sums' last bits, and the chain) would
-    change between runs of one seed; under torch's deterministic mode it
-    sorts the indices first.  The host's ``index_add_`` adds in row order
-    either way."""
+# bits of the card's fixed-point values below their slot and column's
+# largest magnitude, in limbs of LIMB_BITS; a largest magnitude below
+# 2**LOW_EXP counts as 2**LOW_EXP
+FIXED_BITS = 40
+LIMBS = -(-FIXED_BITS // sk.LIMB_BITS)
+LOW_EXP = -80
+# copies of the per-slot maxima, so few rows contend for one
+MAX_COPIES = 64
+
+
+def _same(t):
+    return t
+
+
+def _slot_sums(labels, vals, k: int, keep=None, layout=None):
+    """[K, C] per-slot sums of the [N, C] rows ``vals`` over the rows where
+    ``keep`` (bool [N]; every row when None), summed over ``layout``'s ranks
+    (``reduce``; a world of one when None).  On the host, ``index_add_``
+    in row order over every row, so the rows ``keep`` drops must be zeros.
+    On a card, :func:`_exact_slot_sums`."""
+    if keep is None:
+        keep = torch.ones(labels.shape, dtype=torch.bool,
+                          device=labels.device)
+    reduce = _same if layout is None else layout.reduce
+    if vals.is_cuda:
+        return _exact_slot_sums(labels, vals, k, keep, reduce,
+                                _same if layout is None else layout.reduce_max)
     out = torch.zeros((k, vals.shape[1]), dtype=vals.dtype,
                       device=vals.device)
-    mode = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        return out.index_add_(0, labels, vals)
-    finally:
-        torch.use_deterministic_algorithms(mode, warn_only=warn_only)
+    return reduce(out.index_add_(0, labels, vals))
+
+
+def _pow2(e):
+    """2.0**e as float32 (int32 ``e`` in [-126, 127]), from its bits."""
+    return ((e + 127) << 23).view(torch.float32)
+
+
+def _exact_slot_sums(labels, vals, k: int, keep, reduce, reduce_max):
+    """:func:`_slot_sums` of float32 ``vals``, exact up to each value's
+    rounding to ``FIXED_BITS`` bits below its slot and column's largest
+    magnitude over every rank, then one rounding to float32.  The rounded
+    values are whole numbers, split into ``LIMBS`` limbs for
+    :func:`~..ops.sweep_kernels.slot_sums` (kernel B on a card, counted as
+    ``smart_sums``) and summed over ranks in float64, all exactly: so the
+    sums are the same bits in every run, in any order of the rows and at
+    any split of them over ranks."""
+    if vals.dtype != torch.float32:
+        raise TypeError(f"the smart pass's sums take float32 rows, not "
+                        f"{vals.dtype}")
+    profiling.count("smart_sums")
+    n, c = vals.shape
+    lab = torch.where(keep, labels, 0).long()
+    # |v| < 2**e for e its biased exponent less 126 (zero and subnormals
+    # included); the largest e of each slot and column, over every rank
+    exp = torch.where(keep[:, None],
+                      ((vals.view(torch.int32) >> 23) & 0xFF) - 126, LOW_EXP)
+    copy = lab * MAX_COPIES + (torch.arange(n, device=vals.device)
+                               % MAX_COPIES)
+    top = torch.full((k * MAX_COPIES, c), LOW_EXP, dtype=torch.int32,
+                     device=vals.device).scatter_reduce_(
+        0, copy[:, None].expand(n, c), exp, "amax")
+    shift = FIXED_BITS - reduce_max(top.view(k, MAX_COPIES, c).amax(1))
+    # whole numbers below 2**FIXED_BITS (exact float32 scaling and
+    # rounding), split by exact float32 steps into signed limbs; the scale
+    # gathered along the table's last dimension (rows of four floats take
+    # a gather that is 10x slower on an H100)
+    q = torch.round(vals * _pow2(shift).t()[:, lab].t())
+    mag = q.abs()
+    limbs = torch.empty((n, c, LIMBS), device=vals.device)
+    for j in range(LIMBS):
+        torch.floor(mag * 2.0 ** (-sk.LIMB_BITS * j), out=limbs[:, :, j])
+    limbs.remainder_(2.0 ** sk.LIMB_BITS).copysign_(q[:, :, None])
+    sums = reduce(sk.slot_sums(limbs.view(n, c * LIMBS),
+                               labels.to(torch.int32), keep, k).double())
+    sums = sums.view(k, c, LIMBS)
+    whole = sum(sums[:, :, j] * 2.0 ** (sk.LIMB_BITS * j)
+                for j in range(LIMBS))
+    return (whole * _pow2(-shift).double()).float()
 
 
 def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
-                    max_iter: int, reduce=None) -> torch.Tensor:
+                    max_iter: int, layout=None) -> torch.Tensor:
     """Sub-labels (int32 [N]) with the points of marked slots set by the
     projected 2-means; all other points keep their current sub-label.
 
@@ -71,13 +134,11 @@ def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
     stats_w whole-side stats (n [K], sum_x [K, D], sum_xx [K, D, D]);
     slots_mask bool [K].  The Lloyd loop checks its movement tolerance on
     the host (one sync per iteration, at most ``max_iter``, and one for the
-    tolerance).  Across ranks
-    ``reduce`` sums the per-slot sums over ranks (the projection moments
-    and each Lloyd step's), so the tolerance and the movement the host
-    reads are the same on every rank."""
-    if reduce is None:
-        def reduce(t):
-            return t
+    tolerance).  Across ranks the per-slot sums (the projection moments
+    and each Lloyd step's) are summed over ``layout``'s ranks (a
+    :class:`~..parallel.distributed.RowLayout`; a world of one when None),
+    so the tolerance and the movement the host reads are the same on every
+    rank."""
     k = slots_mask.shape[0]
     nk = torch.clamp(stats_w["n"], min=1.0)
     mu = stats_w["sum_x"] / nk[:, None]
@@ -88,8 +149,9 @@ def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
     off = (mu * v).sum(-1)                       # projected-mean offset
     t = (points * v[lab]).sum(-1) - off[lab]     # [N]
     w = slots_mask.to(points.dtype)[lab] * valid.to(points.dtype)
-    acc = reduce(_slot_sums(lab, torch.stack([w, w * t, w * t * t], dim=-1),
-                            k))
+    keep = w > 0
+    acc = _slot_sums(labels, torch.stack([w, w * t, w * t * t], dim=-1), k,
+                     keep, layout)
     cnt = torch.clamp(acc[:, 0], min=1.0)
     mean = acc[:, 1] / cnt
     var = acc[:, 2] / cnt - mean ** 2
@@ -107,9 +169,9 @@ def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
                                      "smart_tol")
     for _ in range(max_iter):
         side = sides(m)
-        s = reduce(_slot_sums(lab, torch.stack(
+        s = _slot_sums(labels, torch.stack(
             [w * (1.0 - side), w * side, w * (1.0 - side) * t, w * side * t],
-            dim=-1), k))
+            dim=-1), k, keep, layout)
         m2 = torch.stack([
             torch.where(s[:, 0] > 0, s[:, 2] / torch.clamp(s[:, 0], min=1.0),
                         m[:, 0]),
@@ -120,4 +182,4 @@ def smart_sublabels(points, valid, labels, sublabels, stats_w, slots_mask,
         m = m2
         if not move > tol:
             break
-    return torch.where(w > 0, sides(m).to(sublabels.dtype), sublabels)
+    return torch.where(keep, sides(m).to(sublabels.dtype), sublabels)

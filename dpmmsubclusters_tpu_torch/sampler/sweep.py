@@ -63,7 +63,7 @@ def make_smart_pass(family, cfg, layout):
             sub2 = smart_mod.smart_sublabels(
                 assign_mod.raw_points(points, d, x_is_features), valid,
                 labels, sublabels, stats_w, mask, cfg.max_split_iter,
-                reduce=layout.reduce)
+                layout=layout)
             table = _stats_pass(family, table, points, valid, labels, sub2,
                                 x_is_features, layout)
             return ({**table, "needs_smart": table["needs_smart"] & ~mask},

@@ -36,9 +36,10 @@ Span names are ``<layer>.<thing>``: ``entry.fit``, ``entry.standardize``,
 ``entry.transfer``, ``entry.init_state``, ``cache_build.featurize``,
 ``host_loop.step_block``, ``host_loop.tier_step``, ``table_math.smart``;
 per sweep ``table_math.sample_params``, ``kernel_a.assign_and_stats``,
-``table_math.moves``; and ``host_sync.<site>`` with the counter
-``sweeps``.  The record belongs to the process and is not thread-safe:
-the sampler drives one card from one thread.
+``table_math.moves``; and ``host_sync.<site>`` with the counters
+``sweeps`` and ``smart_sums`` (the smart pass's per-slot sums taken by
+kernel B on a card).  The record belongs to the process and is not
+thread-safe: the sampler drives one card from one thread.
 """
 from __future__ import annotations
 
