@@ -19,6 +19,7 @@ import math
 import torch
 
 from ..ops.linalg import sample_dirichlet
+from ..utils import profiling
 from .table import compute_posteriors, data_dim, side_tile
 
 NEG_INF = float("-inf")
@@ -86,8 +87,9 @@ def sample_params_step(gen, table, alpha: float, outlier_mod: float, family,
 
     # one posterior-psi factorization serves the draw and the log-marginal
     mask3 = _mask3(table)
-    cache = family.posterior_cache(table["post"], mask3)
-    params = family.sample_params(gen, table["post"], mask3, cache=cache)
+    with profiling.family_span("draw"):
+        cache = family.posterior_cache(table["post"], mask3)
+        params = family.sample_params(gen, table["post"], mask3, cache=cache)
     if freeze_outlier:
         is_out = table["is_outlier"]
         params = {name: torch.where(_rows(is_out, new.ndim),
@@ -98,8 +100,9 @@ def sample_params_step(gen, table, alpha: float, outlier_mod: float, family,
     lr_alpha = torch.stack([n[:, 1], n[:, 2]], dim=-1) + alpha / 2.0
     lr_weights = sample_dirichlet(gen, lr_alpha)
 
-    lm = family.log_marginal(side_tile(table["prior"]), table["post"],
-                             table["stats"], mask3, cache=cache)
+    with profiling.family_span("marginal"):
+        lm = family.log_marginal(side_tile(table["prior"]), table["post"],
+                                 table["stats"], mask3, cache=cache)
     newest = lm[:, 1] + lm[:, 2]
     hist = torch.cat([table["hist"][:, 1:], newest[:, None]], dim=-1)
     splittable = (table["splittable"] | converged(hist, reference_gate)) \
@@ -187,8 +190,10 @@ def split_move(gen, table, labels, sublabels, alpha: float, final: bool,
     dev = active.device
     n = table["stats"]["n"]
     if lm is None:
-        lm = family.log_marginal(side_tile(table["prior"]), table["post"],
-                                 table["stats"], _mask3(table))
+        with profiling.family_span("marginal"):
+            lm = family.log_marginal(side_tile(table["prior"]),
+                                     table["post"], table["stats"],
+                                     _mask3(table))
     eligible = (
         active & table["splittable"] & ~table["is_outlier"]
         & (n[:, 0] > 1) & (n[:, 1] > 0) & (n[:, 2] > 0)
@@ -259,7 +264,9 @@ def _merge_pairs_full(gen, table, family, eligible, lm_w, n_w, alpha, final):
     """Exact log_HR for every (i, j) pair -> accepted-pair mask [K, K]."""
     k = eligible.shape[0]
     stats_w = {name: a[:, 0] for name, a in table["stats"].items()}
-    lm_m = family.log_marginal_pairwise(table["prior"], stats_w, eligible)
+    with profiling.family_span("marginal"):
+        lm_m = family.log_marginal_pairwise(table["prior"], stats_w,
+                                            eligible)
     log_hr = merge_log_hastings(alpha, n_w[:, None], n_w[None, :],
                                 lm_w[:, None], lm_w[None, :], lm_m)
     u = _uniform(gen, (k, k), eligible.device)
@@ -288,8 +295,10 @@ def _merge_pairs_screened(gen, table, family, eligible, lm_w, n_w, alpha,
     flat_w = family.stats_to_flat(stats_w)
     merged = family.stats_from_flat(flat_w[ii] + flat_w[jj], dim)
     prior_i = {name: a[ii] for name, a in table["prior"].items()}
-    post_m = family.calc_posterior(prior_i, merged)
-    lm_m = family.log_marginal(prior_i, post_m, merged, valid_m)
+    with profiling.family_span("posterior"):
+        post_m = family.calc_posterior(prior_i, merged)
+    with profiling.family_span("marginal"):
+        lm_m = family.log_marginal(prior_i, post_m, merged, valid_m)
     log_hr = merge_log_hastings(alpha, n_w[ii], n_w[jj], lm_w[ii], lm_w[jj],
                                 lm_m)
     acc = valid_m & _accept(log_hr, _uniform(gen, (m_cand,), dev), final)
@@ -315,7 +324,9 @@ def merge_move(gen, table, labels, sublabels, alpha: float, final: bool,
     eligible = (active & table["splittable"] & (n_w > 0)
                 & ~table["is_outlier"])
     if lm_w is None:
-        lm_w = family.log_marginal(table["prior"], post_w, stats_w, eligible)
+        with profiling.family_span("marginal"):
+            lm_w = family.log_marginal(table["prior"], post_w, stats_w,
+                                       eligible)
     lm_w = torch.where(eligible, lm_w, 0.0)
     dim = data_dim(table["prior"])
 

@@ -149,11 +149,12 @@ def make_sweep(family, cfg, layout):
             if not no_more_splits:
                 k_slots = table["active"].shape[0]
                 mask3 = table["active"][:, None].expand(k_slots, 3)
-                lm3 = family.log_marginal(
-                    side_tile(table["prior"]), table["post"],
-                    table["stats"], mask3,
-                    cache=family.posterior_cache(table["post"], mask3),
-                )
+                with profiling.family_span("marginal"):
+                    lm3 = family.log_marginal(
+                        side_tile(table["prior"]), table["post"],
+                        table["stats"], mask3,
+                        cache=family.posterior_cache(table["post"], mask3),
+                    )
                 (table, labels, sublabels, any_split,
                  touched) = moves.split_move(gen, table, labels, sublabels,
                                              alpha, final, family, lm=lm3)

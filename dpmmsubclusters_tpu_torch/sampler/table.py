@@ -21,6 +21,8 @@ import math
 
 import torch
 
+from ..utils import profiling
+
 NEG_INF = float("-inf")
 
 
@@ -39,7 +41,9 @@ def data_dim(prior) -> int:
 def compute_posteriors(family, table):
     """Recompute all posterior hyperparams from the current statistics
     (``update_splittable_cluster_params!``, for every slot and side)."""
-    post = family.calc_posterior(side_tile(table["prior"]), table["stats"])
+    with profiling.family_span("posterior"):
+        post = family.calc_posterior(side_tile(table["prior"]),
+                                     table["stats"])
     return {**table, "post": post}
 
 
@@ -71,12 +75,14 @@ def init_table(family, prior, outlier_prior, cfg, d: int, device="cpu"):
     prior_k = family.augment_prior(prior_k)
 
     stats = family.empty_stats((k, 3), d, device=device)
+    with profiling.family_span("posterior"):
+        post = family.calc_posterior(side_tile(prior_k), stats)
     return {
         "active": active,
         "is_outlier": is_outlier,
         "prior": prior_k,
         "stats": stats,
-        "post": family.calc_posterior(side_tile(prior_k), stats),
+        "post": post,
         "params": None,  # filled by the first parameter-sampling step
         "lr_weights": torch.full((k, 2), 0.5, device=device),
         "log_weights": torch.where(active, 0.0, NEG_INF).float(),
@@ -148,7 +154,8 @@ def log_posterior(family, table, alpha: float, n_total: float):
     stats_w = whole_stats(table)
     post_w = _map(lambda a: a[:, 0], table["post"])
     mask = table["active"] & (stats_w["n"] > 0)
-    lm = family.log_marginal(table["prior"], post_w, stats_w, mask)
+    with profiling.family_span("marginal"):
+        lm = family.log_marginal(table["prior"], post_w, stats_w, mask)
     per_cluster = torch.where(
         mask,
         lm + math.log(alpha) + torch.lgamma(torch.clamp(stats_w["n"],

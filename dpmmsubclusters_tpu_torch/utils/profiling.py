@@ -36,7 +36,9 @@ Span names are ``<layer>.<thing>``: ``entry.fit``, ``entry.standardize``,
 ``entry.transfer``, ``entry.init_state``, ``cache_build.featurize``,
 ``host_loop.step_block``, ``host_loop.tier_step``, ``table_math.smart``;
 per sweep ``table_math.sample_params``, ``kernel_a.assign_and_stats``,
-``table_math.moves``; and ``host_sync.<site>`` with the counters
+``table_math.moves``; at the sampler's calls into its family's
+conjugate math (:func:`family_span`), ``table_math.family.draw``,
+``.posterior`` and ``.marginal``; and ``host_sync.<site>`` with the counters
 ``sweeps`` and ``smart_sums`` (the smart pass's per-slot sums taken by
 kernel B on a card).  The record belongs to the process and is not
 thread-safe: the sampler drives one card from one thread.
@@ -209,6 +211,16 @@ def span(name: str, *, detail: bool = False, phases: bool = False):
     if detail and not tracing():
         return _OFF
     return _Open(name, detail, phases)
+
+
+def family_span(kind: str):
+    """The per-sweep span ``table_math.family.<kind>`` around one call of
+    the sampler into its family's conjugate math, whatever the family:
+    ``draw`` (``posterior_cache`` with ``sample_params``), ``posterior``
+    (``calc_posterior``) or ``marginal`` (``log_marginal``, with its
+    ``posterior_cache``, and ``log_marginal_pairwise``).  Recorded only
+    while :func:`tracing`, as every ``detail`` span."""
+    return span("table_math.family." + kind, detail=True)
 
 
 def count(name: str, n: int = 1) -> None:
