@@ -55,11 +55,15 @@ and profiles 8 steady sweeps of the flagship fit (f32 cache, under
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-a    # kernel A: digests and times
+    python3 chip_smoke.py --tc-digests  # kernel A at width 256: digests
     python3 chip_smoke.py --kernel-b    # kernel B alone: digests and times
     python3 chip_smoke.py --chain-quality   # 1M x 64-d, seeds 1-5
     python3 chip_smoke.py --huge        # the 10M x 64-d fits alone
     python3 chip_smoke.py --studies     # kernels C, D's column sums, E
 
+``--tc-digests`` prints kernel A's digests at a table width of 256 with
+inactive slots (:data:`TC_DIGESTS`), one JSON line (a copy in another tree
+reads that tree's).
 ``--kernel-a`` prints the exact route's digests and kernel A's times in
 each variant under every ll_precision, each with its share of the bound,
 the tile study's blocks and kernel D's stage sets; ``--kernel-b`` prints kernel B's digests and its time in each variant
@@ -780,6 +784,29 @@ A_DIGESTS = {
 }
 
 
+# Kernel A under "default" at a table width of 256 whose slots past a live
+# set are inactive (log_w -inf), on a_digest_inputs at D=64: the ring's
+# three-pass split on rows built from the points ("gaussian") and the
+# tensor-map kernel's one bf16 pass over the hybrid cache ("hybrid"); live:
+# the first 100 slots, then those and slot 200.  sha256 of the labels and
+# sub-labels, hard then soft, as the kernels that ran every pass of the
+# width (c4a519b, ``python3 chip_smoke.py --tc-digests`` from a checkout of
+# that commit on an NVIDIA H100 80GB HBM3) gave them: the passes past the
+# highest live column change no bit
+TC_LIVE = {"prefix 100": list(range(100)),
+           "prefix 100 and 200": list(range(100)) + [200]}
+TC_DIGESTS = {
+    "gaussian K=256 live prefix 100":
+        "5a904b9d900bdc60bda3dfbe7ec6e603f7995f02931a66537599474d3cfac48c",
+    "gaussian K=256 live prefix 100 and 200":
+        "7a9207eb5db5aae0497af9dd04f646bb3307d216265b045910e7295dbc982d27",
+    "hybrid K=256 live prefix 100":
+        "f0d9f9ae416a8e752cb6a768282413934110b5cdd00a22e562bc49f8e1d4717c",
+    "hybrid K=256 live prefix 100 and 200":
+        "957f74d838c00939cd3911fcba97313c2b19e71f34c3e9ed046562745b9b2f40",
+}
+
+
 def a_digest_inputs(torch, dev, family: str, d: int, k: int):
     """(args, kwargs) of kernel A on its digest input (numpy-seeded; see
     A_DIGEST_CASES)."""
@@ -852,6 +879,46 @@ def a_digests(torch, sk, dev) -> dict:
         out[f"{family} K={k}"] = h.hexdigest()
         del args, kw
     return out
+
+
+def tc_digests(torch, sk, dev) -> dict:
+    """sha256 of kernel A's labels and sub-labels (hard, then soft) under
+    "default" on each :data:`TC_LIVE` case of the width-256 digest inputs
+    (:data:`TC_DIGESTS`)."""
+    out = {}
+    for family in ("gaussian", "hybrid"):
+        args, kw = a_digest_inputs(torch, dev, family, 64, 256)
+        x, valid, phi, log_w, seed, tile_off = args
+        kw["ll_precision"] = "default"
+        for name, live in TC_LIVE.items():
+            w = torch.full_like(log_w, float("-inf"))
+            w[live] = log_w[live]
+            h = hashlib.sha256()
+            for hard in (True, False):
+                labels, sub, _ = sk.fused_assign(x, valid, phi, w, seed,
+                                                 tile_off, hard, **kw)
+                h.update(labels.cpu().numpy().tobytes())
+                h.update(sub.cpu().numpy().tobytes())
+            out[f"{family} K=256 live {name}"] = h.hexdigest()
+        del args, kw, x
+    return out
+
+
+def tc_digests_main() -> int:
+    """``--tc-digests``: :func:`tc_digests` with whichever
+    dpmmsubclusters_tpu_torch this directory holds, one JSON line."""
+    import torch
+
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+    from dpmmsubclusters_tpu_torch.utils import profiling
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    print(json.dumps({"tc_digests": tc_digests(torch, sk, dev),
+                      "card": profiling.card(dev)}), flush=True)
+    return 0
 
 
 def kernel_a_main() -> int:
@@ -2288,7 +2355,7 @@ def run_distributed(torch, ref: dict, smi: str) -> dict:
 
 
 # the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
-CARD_TESTS = 266
+CARD_TESTS = 298
 
 
 def run_card_tests(smi: str) -> int:
@@ -2359,6 +2426,10 @@ def main() -> int:
     assert digests == A_DIGESTS, ("kernel A's exact route differs from the "
                                   "earlier kernel's", digests)
     log(f"kernel A's exact digests equal the earlier kernel's: {digests}")
+    digests = tc_digests(torch, sk, dev)
+    assert digests == TC_DIGESTS, ("kernel A at width 256 differs from the "
+                                   "kernels that ran every pass", digests)
+    log(f"kernel A's width-256 digests equal those of every pass: {digests}")
     kernels["build_gate"] = build_gate(torch, _build, smi)
     kernels.update(check_study_kernels(torch, dev, smi))
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
@@ -2634,7 +2705,8 @@ def split_rows(report: dict, kernels: dict, variant: str, counts: dict,
             "launches": n_split - n_ring, **kernels[NARROW_SPLIT[variant]]})
 
 
-MODES = {"--kernel-a": kernel_a_main, "--kernel-b": kernel_b_main,
+MODES = {"--kernel-a": kernel_a_main, "--tc-digests": tc_digests_main,
+         "--kernel-b": kernel_b_main,
          "--chain-quality": chain_quality_main, "--huge": huge_main,
          "--studies": studies_main}
 

@@ -155,14 +155,17 @@ cudaError_t launch_stats(Rows rows, const int32_t* labels, const int32_t* sub,
 // plane: rows and phi rounded to bf16, float32 sums (fused_assign_tc.cu);
 // two planes: each split into a bf16 hi and lo, three products
 // (fused_assign_tc3.cu).  ``phi_t`` is scratch of dpmm_assign_tc_scratch(f,
-// k, Planes) bf16 values.  Instantiated for CacheRows, BuiltRows and
-// Bf16Rows.
+// k, Planes) bf16 values.  ``tally`` [2], where not null: the passes run
+// and the passes the table width calls for are added to it by the launches
+// at a pass width of 256 whose width calls for more than one pass.
+// Instantiated for CacheRows, BuiltRows and Bf16Rows.
 template <int Planes, class Rows>
 cudaError_t launch_assign_tc(Rows rows, const float* phi,
                              __nv_bfloat16* phi_t, const float* log_w,
                              const int32_t* seed, int tile_off, int hard,
                              int tile, int n, int f, int k, int32_t* labels,
-                             int32_t* sub, cudaStream_t stream);
+                             int32_t* sub, unsigned long long* tally,
+                             cudaStream_t stream);
 
 // column_sum.cu.  out rows [0, out_rows) (leading dimension ld_out) = the
 // sums over r of partial [rows, m], in a fixed order.

@@ -377,16 +377,19 @@ int assign_and_stats(Rows rows, StatRows stat_rows, const uint8_t* valid,
                      int precision, const float* log_w, const int32_t* seed,
                      int tile_off, int hard, int tile, int n, int f, int k,
                      int warps, int32_t* labels, int32_t* sub, float* partial,
-                     float* stats, cudaStream_t st) {
+                     float* stats, unsigned long long* tally,
+                     cudaStream_t st) {
   cudaError_t err;
   if (precision == kOneBf16Pass || precision == kThreeBf16Passes) {
     if (warps != kWarps || phi_t == nullptr) return cudaErrorInvalidValue;
     __nv_bfloat16* staged = static_cast<__nv_bfloat16*>(phi_t);
     err = precision == kOneBf16Pass
               ? launch_assign_tc<1>(rows, phi, staged, log_w, seed, tile_off,
-                                    hard, tile, n, f, k, labels, sub, st)
+                                    hard, tile, n, f, k, labels, sub, tally,
+                                    st)
               : launch_assign_tc<2>(rows, phi, staged, log_w, seed, tile_off,
-                                    hard, tile, n, f, k, labels, sub, st);
+                                    hard, tile, n, f, k, labels, sub, tally,
+                                    st);
   } else if (precision == kExactF32) {
     err = launch_assign(rows, phi, delta_t, log_w, seed, tile_off, hard, tile,
                         n, f, k, warps, labels, sub, st);
@@ -409,6 +412,9 @@ int assign_and_stats(Rows rows, StatRows stat_rows, const uint8_t* valid,
 // points) for the cache at k <= 128.  ``precision`` 1: one bf16 pass on the tensor cores, 2: the
 // three-pass bf16 split there; phi_t is scratch of dpmm_assign_tc_scratch(f,
 // k, precision) bf16 values, delta_t is not read and ``warps`` is 8.
+// ``tally``: null, or int64 [2] on the card, to which the tensor-core pass
+// at a pass width of 256 adds the passes it ran and the passes the table
+// width calls for (launch_assign_tc).
 extern "C" int dpmm_fused_assign(const float* rows, const int32_t* pairs,
                                  int d, const uint8_t* valid,
                                  const float* phi, const float* delta_t,
@@ -417,19 +423,21 @@ extern "C" int dpmm_fused_assign(const float* rows, const int32_t* pairs,
                                  int tile_off, int hard, int tile, int n,
                                  int f, int k, int warps, int32_t* labels,
                                  int32_t* sub, float* partial, float* stats,
-                                 void* stream) {
+                                 void* tally, void* stream) {
   using namespace dpmm;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned long long* passes = static_cast<unsigned long long*>(tally);
   if (pairs != nullptr) {
     const BuiltRows built{rows, pairs, d};
     return assign_and_stats(built, built, valid, phi, delta_t, phi_t,
                             precision, log_w, seed, tile_off, hard, tile, n,
-                            f, k, warps, labels, sub, partial, stats, st);
+                            f, k, warps, labels, sub, partial, stats, passes,
+                            st);
   }
   const CacheRows cache{rows, f};
   return assign_and_stats(cache, cache, valid, phi, delta_t, phi_t,
                           precision, log_w, seed, tile_off, hard, tile, n, f,
-                          k, warps, labels, sub, partial, stats, st);
+                          k, warps, labels, sub, partial, stats, passes, st);
 }
 
 // feat: the bf16 cache [n, f], rows ``ld`` values apart.  raw null:
@@ -446,16 +454,18 @@ extern "C" int dpmm_fused_assign_bf16(const void* feat, int ld,
                                       int tile_off, int hard, int tile, int n,
                                       int f, int k, int32_t* labels,
                                       int32_t* sub, float* partial,
-                                      float* stats, void* stream) {
+                                      float* stats, void* tally,
+                                      void* stream) {
   using namespace dpmm;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned long long* passes = static_cast<unsigned long long*>(tally);
   const Bf16Rows cache{static_cast<const __nv_bfloat16*>(feat), f, ld};
   if (raw != nullptr)
     return assign_and_stats(cache, BuiltRows{raw, pairs, d}, valid, phi,
                             delta_t, phi_t, precision, log_w, seed, tile_off,
                             hard, tile, n, f, k, kWarps, labels, sub, partial,
-                            stats, st);
+                            stats, passes, st);
   return assign_and_stats(cache, cache, valid, phi, delta_t, phi_t, precision,
                           log_w, seed, tile_off, hard, tile, n, f, k, kWarps,
-                          labels, sub, partial, stats, st);
+                          labels, sub, partial, stats, passes, st);
 }

@@ -535,7 +535,7 @@ template <class Rows>
 cudaError_t launch(Rows rows, const float* phi, __nv_bfloat16* phi_t,
                    const float* log_w, const int32_t* seed, int tile_off,
                    int hard, int tile, int n, int f, int k, int32_t* labels,
-                   int32_t* sub, cudaStream_t st);
+                   int32_t* sub, unsigned long long* tally, cudaStream_t st);
 }  // namespace ring
 
 namespace tma {
@@ -544,7 +544,7 @@ namespace tma {
 cudaError_t launch(Bf16Rows rows, const float* phi, __nv_bfloat16* phi_t,
                    const float* log_w, const int32_t* seed, int tile_off,
                    int hard, int tile, int n, int f, int k, int32_t* labels,
-                   int32_t* sub, cudaStream_t st);
+                   int32_t* sub, unsigned long long* tally, cudaStream_t st);
 }  // namespace tma
 
 template <int Planes, class Rows>
@@ -552,17 +552,18 @@ cudaError_t launch_assign_tc(Rows rows, const float* phi,
                              __nv_bfloat16* phi_t, const float* log_w,
                              const int32_t* seed, int tile_off, int hard,
                              int tile, int n, int f, int k, int32_t* labels,
-                             int32_t* sub, cudaStream_t st) {
+                             int32_t* sub, unsigned long long* tally,
+                             cudaStream_t st) {
   const int width = tc_width(k);
   if constexpr (Planes == 2) {
     if (width == 256)
       return ring::launch(rows, phi, phi_t, log_w, seed, tile_off, hard, tile,
-                          n, f, k, labels, sub, st);
+                          n, f, k, labels, sub, tally, st);
   }
   if constexpr (Planes == 1 && std::is_same<Rows, Bf16Rows>::value) {
     if (width == 256)
       return tma::launch(rows, phi, phi_t, log_w, seed, tile_off, hard, tile,
-                         n, f, k, labels, sub, st);
+                         n, f, k, labels, sub, tally, st);
   }
   const int f_pad = tc_padded(f);
   const int total_rows = tc_passes(k) * width;
@@ -589,7 +590,8 @@ cudaError_t launch_assign_tc(Rows rows, const float* phi,
 #define DPMM_TC_INSTANTIATE(Planes, Rows)                                    \
   template cudaError_t launch_assign_tc<Planes, Rows>(                       \
       Rows, const float*, __nv_bfloat16*, const float*, const int32_t*, int, \
-      int, int, int, int, int, int32_t*, int32_t*, cudaStream_t)
+      int, int, int, int, int, int32_t*, int32_t*, unsigned long long*,     \
+      cudaStream_t)
 #define DPMM_TC_INSTANTIATE_ALL(Planes)      \
   DPMM_TC_INSTANTIATE(Planes, CacheRows);    \
   DPMM_TC_INSTANTIATE(Planes, BuiltRows);    \

@@ -76,6 +76,12 @@
 //    of zeros, nothing written) so that both blocks take part in every
 //    barrier, and a producer leaves only after every consumer of the
 //    cluster has released its last stages;
+//  * a launch runs the passes up to the highest live column only
+//    (live_passes: each block reads log_w at its start), not every pass of
+//    the table's width: a slot past it is inactive (log_w -inf), so its
+//    logit is -inf and its index above every column that runs, and it wins
+//    neither outright nor at a tie.  The labels are those of every pass;
+//    every block reads the same log_w, so the partners walk the same steps;
 //  * the noise is drawn only for columns that can win (fold_pass).  The
 //    noise of column j depends only on j and the row's global index, and a
 //    column wins only by jnp.argmax's rule (larger value, then smaller
@@ -222,6 +228,37 @@ __device__ __forceinline__ void cluster_sync() {
           : "memory");
 }
 
+// The passes of ``half`` whole columns a launch runs: those up to the pass
+// of the highest column j < k whose log_w[j] is not -inf (NaN and +inf
+// count as live), at least one (no live column: column 0 takes every row,
+// as in a full walk), at most ``passes``, the table width's.  Every thread
+// of the block calls it; the loop's turns are the block's, so it is
+// uniform.
+__device__ __forceinline__ int live_passes(const float* __restrict__ log_w,
+                                           int k, int passes, int half) {
+  int p = passes - 1;
+  for (; p > 0; --p) {
+    bool live = false;
+    for (int j = p * half + static_cast<int>(threadIdx.x);
+         j < min(k, (p + 1) * half); j += static_cast<int>(blockDim.x))
+      live |= __ldg(log_w + j) != -INFINITY;
+    if (__syncthreads_or(live)) break;
+  }
+  return p + 1;
+}
+// A launch's passes run and the passes its table width calls for, added to
+// ``tally`` [2] by one thread of the launch where the width calls for more
+// than one pass (the launches whose count can differ); plain adds: the
+// launches of a stream run in turn.  No tally (null): nothing.
+__device__ __forceinline__ void tally_passes(unsigned long long* tally,
+                                             int run, int passes) {
+  if (tally != nullptr && passes > 1 && blockIdx.x == 0 &&
+      threadIdx.x == 0) {
+    tally[0] += run;
+    tally[1] += passes;
+  }
+}
+
 // What a launch shares between the producer and the consumers: the ring,
 // the walk over tiles and, after the ring, the barriers and the producer's
 // room (a cache's raw buffers, or the tile's points X).
@@ -237,6 +274,7 @@ struct TcGrid {
   int clusters;
   int pairs;        // pairs of 128-point tiles
   int slices;       // 64-feature slices of a pass
+  int passes;       // a tile's: up to the highest live column
   int steps;        // a tile's: passes x slices
   int total;        // this block's: its tile pairs x steps
   // stage s is full (phi's bytes arrived) and empty (released by every
@@ -615,7 +653,6 @@ __device__ __forceinline__ void consume(const TcGrid& grid, const Rows& rows,
                                         const float* __restrict__ log_w,
                                         uint32_t seed, int tile_off, int hard,
                                         int tile, int n, int f, int k,
-                                        int passes,
                                         int32_t* __restrict__ labels,
                                         int32_t* __restrict__ sub) {
   using Shape = TcShape<N, Planes>;
@@ -645,7 +682,7 @@ __device__ __forceinline__ void consume(const TcGrid& grid, const Rows& rows,
                           wg * 64 + warp * 16 + (lane >> 2);
     Best best[2];
     best[0] = best[1] = {-INFINITY, 0x7fffffff, 0.0f};
-    for (int pass = 0; pass < passes; ++pass) {
+    for (int pass = 0; pass < grid.passes; ++pass) {
       float acc[N / 2];
 #pragma unroll
       for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
@@ -698,7 +735,8 @@ __global__ void __cluster_dims__(kTcCluster, 1, 1)
                      int hard, int tile, int n, int f, int f_pad, int k,
                      int passes, int stages, int aux_mode,
                      int32_t* __restrict__ labels,
-                     int32_t* __restrict__ sub) {
+                     int32_t* __restrict__ sub,
+                     unsigned long long* __restrict__ tally) {
   using Shape = TcShape<N, Planes>;
   extern __shared__ unsigned char smem_raw[];
   // tiles start at multiples of 1024 bytes, at the same place in both
@@ -719,7 +757,10 @@ __global__ void __cluster_dims__(kTcCluster, 1, 1)
   grid.pairs = ((n + kTcPoints - 1) / kTcPoints + kTcCluster - 1) /
                kTcCluster;
   grid.slices = f_pad / kTcDepth;
-  grid.steps = passes * grid.slices;
+  // the passes up to the highest live column, of the width's ``passes``
+  grid.passes = live_passes(log_w, k, passes, N / 2);
+  tally_passes(tally, grid.passes, passes);
+  grid.steps = grid.passes * grid.slices;
   grid.total = (grid.pairs - grid.cluster + grid.clusters - 1) /
                grid.clusters * grid.steps;
   if (threadIdx.x == 0) {
@@ -747,7 +788,7 @@ __global__ void __cluster_dims__(kTcCluster, 1, 1)
         kTcConsumerRegs));
     consume<N, Planes>(grid, rows, smem, log_w,
                        static_cast<uint32_t>(seed_ptr[0]), tile_off, hard,
-                       tile, n, f, k, passes, labels, sub);
+                       tile, n, f, k, labels, sub);
   }
 }
 
@@ -773,7 +814,7 @@ cudaError_t launch_width(Rows rows, const __nv_bfloat16* phi_t,
                          const float* log_w, const int32_t* seed,
                          int tile_off, int hard, int tile, int n, int f,
                          int k, int32_t* labels, int32_t* sub,
-                         cudaStream_t st) {
+                         unsigned long long* tally, cudaStream_t st) {
   using Shape = TcShape<N, Planes>;
   auto kernel = assign_tc_kernel<N, Planes, Rows>;
   // the ring's stages in what the producer's room leaves
@@ -815,7 +856,7 @@ cudaError_t launch_width(Rows rows, const __nv_bfloat16* phi_t,
   const int clusters = std::min(pairs, resident[device]);
   kernel<<<clusters * kTcCluster, kTcThreads, smem_bytes, st>>>(
       rows, phi_t, log_w, seed, tile_off, hard, tile, n, f, tc_padded(f), k,
-      tc_passes(k), stages, aux_mode, labels, sub);
+      tc_passes(k), stages, aux_mode, labels, sub, tally);
   return cudaGetLastError();
 }
 
@@ -825,7 +866,7 @@ template <class Rows>
 cudaError_t launch(Rows rows, const float* phi, __nv_bfloat16* phi_t,
                    const float* log_w, const int32_t* seed, int tile_off,
                    int hard, int tile, int n, int f, int k, int32_t* labels,
-                   int32_t* sub, cudaStream_t st) {
+                   int32_t* sub, unsigned long long* tally, cudaStream_t st) {
   constexpr int kWidth = 256, kPlanes = 2;
   const int f_pad = tc_padded(f);
   const int total_rows = tc_passes(k) * kWidth;
@@ -835,7 +876,8 @@ cudaError_t launch(Rows rows, const float* phi, __nv_bfloat16* phi_t,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_width<kWidth, kPlanes>(rows, phi_t, log_w, seed, tile_off,
-                                       hard, tile, n, f, k, labels, sub, st);
+                                       hard, tile, n, f, k, labels, sub,
+                                       tally, st);
 }
 
 }  // namespace ring

@@ -52,7 +52,9 @@
 //    in the four lanes of a quad of one warp, so the argmax needs no
 //    exchange between warpgroups;
 //  * the ring runs on across passes and tiles (K > 128 re-reads the rows a
-//    pass): a tile's step s is slice s % slices of pass s / slices;
+//    pass): a tile's step s is slice s % slices of pass s / slices, over the
+//    passes up to the highest live column only (ring::live_passes, as the
+//    ring walks them);
 //  * the fold is the ring's (ring::fold_pass, ring::write_labels): the
 //    noise is drawn only for columns that can win; the noise of column j
 //    depends only on j and the row's global index, and a column wins only
@@ -99,7 +101,7 @@ struct Walk {
   int clusters;
   int pairs;        // pairs of 128-point tiles
   int slices;       // 64-feature slices of a pass
-  int steps;        // a tile's: passes x slices
+  int steps;        // a tile's: passes run x slices
   int total;        // this block's: its tile pairs x steps
   // stage s is full (rows and phi arrived) and empty (released by every
   // consumer warp of the cluster)
@@ -217,7 +219,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
                       const int32_t* __restrict__ seed_ptr, int tile_off,
                       int hard, int tile, int n, int slices, int k,
                       int passes, int32_t* __restrict__ labels,
-                      int32_t* __restrict__ sub) {
+                      int32_t* __restrict__ sub,
+                      unsigned long long* __restrict__ tally) {
   extern __shared__ unsigned char smem_raw[];
   // tiles start at multiples of 1024 bytes (the swizzle's period), at the
   // same place in both blocks (the multicast writes there)
@@ -231,7 +234,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   w.clusters = gridDim.x / kCluster;
   w.pairs = ((n + kPoints - 1) / kPoints + kCluster - 1) / kCluster;
   w.slices = slices;
-  w.steps = passes * slices;
+  // the passes up to the highest live column, of the width's ``passes``
+  const int run = ring::live_passes(log_w, k, passes, kWidth / 2);
+  ring::tally_passes(tally, run, passes);
+  w.steps = run * slices;
   w.total = (w.pairs - w.cluster + w.clusters - 1) / w.clusters * w.steps;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -251,7 +257,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         kConsumerRegs));
     consume(w, log_w, static_cast<uint32_t>(seed_ptr[0]), tile_off, hard,
-            tile, n, k, passes, labels, sub);
+            tile, n, k, run, labels, sub);
   }
 }
 
@@ -287,7 +293,7 @@ inline EncodeTiled encode_tiled() {
 cudaError_t launch(Bf16Rows rows, const float* phi, __nv_bfloat16* phi_t,
                    const float* log_w, const int32_t* seed, int tile_off,
                    int hard, int tile, int n, int f, int k, int32_t* labels,
-                   int32_t* sub, cudaStream_t st) {
+                   int32_t* sub, unsigned long long* tally, cudaStream_t st) {
   // the tensor map's rows start on a 16-byte boundary, 16-byte multiples
   // apart (the wrapper lays a cache out so)
   if ((reinterpret_cast<uintptr_t>(rows.feat) & 15) != 0 || rows.ld % 8 ||
@@ -349,7 +355,7 @@ cudaError_t launch(Bf16Rows rows, const float* phi, __nv_bfloat16* phi_t,
   const int clusters = std::min(pairs, resident[device]);
   assign_tma_kernel<<<clusters * kCluster, kThreads, kSmemBytes, st>>>(
       map, phi_t, log_w, seed, tile_off, hard, tile, n, f_pad / kDepth, k,
-      passes, labels, sub);
+      passes, labels, sub, tally);
   return cudaGetLastError();
 }
 

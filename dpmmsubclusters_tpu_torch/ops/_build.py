@@ -32,14 +32,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # rows, pairs, d, valid, phi, delta_t, phi_t, precision, log_w, seed,
     # tile_off, hard, tile, n, f, k, warps, labels, sub, partial, stats,
-    # stream
+    # tally, stream
     "dpmm_fused_assign": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _I, _P, _P, _P, _P, _P],
+                          _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # feat, ld, raw, pairs, d, then as dpmm_fused_assign from valid on,
     # without warps
     "dpmm_fused_assign_bf16": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P,
                                _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                               _P],
+                               _P, _P],
     # f, k, planes
     "dpmm_assign_tc_scratch": [_I, _I, _I],
     # rows, pairs, d, labels, sub, valid, n, f, k, scratch, stats, stream

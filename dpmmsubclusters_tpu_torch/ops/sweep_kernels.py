@@ -72,6 +72,7 @@ import torch
 
 from ..priors.dirichlet import MULTINOMIAL
 from ..priors.niw import GAUSSIAN
+from ..utils import profiling
 from . import _build
 
 _MASK32 = 0xFFFFFFFF
@@ -208,6 +209,35 @@ def feature_rows(x, family_name: str) -> torch.Tensor:
     if family_name in ("precomputed",) + _BF16:
         return x
     return _FAMILIES[family_name].features(x)
+
+
+def tc_passes(k: int) -> int:
+    """Passes of kernel A's tensor-core pass at table width ``k``: half its
+    pass width (32, 64, 128 or 256 columns) of whole columns a pass
+    (``csrc/fused_assign_tc.cuh``'s ``tc_passes``)."""
+    width = 32 if k <= 16 else 64 if k <= 32 else 128 if k <= 64 else 256
+    return -(-k // (width // 2))
+
+
+def live_passes(log_w) -> int:
+    """The passes kernel A's tensor-core pass runs at a pass width of 256
+    (``ring::live_passes``): those of 128 whole columns up to the highest
+    column whose ``log_w`` is not -inf (NaN and +inf count), at least one.
+    The slots past it are inactive, and no label depends on them."""
+    live = torch.nonzero(log_w != float("-inf"))
+    k_hi = int(live[-1, 0]) + 1 if live.numel() else 1
+    return -(-k_hi // 128)
+
+
+def _count_passes(log_w) -> None:
+    """What a card's launch at a pass width of 256 adds to
+    ``profiling.PASS_COUNTERS``, from ``log_w`` on the host: the passes run
+    and the table width's, where the width calls for more than one."""
+    width = tc_passes(log_w.shape[0])
+    if width > 1:
+        run_name, width_name = profiling.PASS_COUNTERS
+        profiling.count(run_name, live_passes(log_w))
+        profiling.count(width_name, width)
 
 
 # ---- plain versions ----------------------------------------------------------
@@ -545,17 +575,29 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
 
     Returns ``(labels int32 [N], sub int32 [N], stats float32 [2K, F])``
     with stats rows ``[LEFT K | RIGHT K]``.
+
+    While ``profiling.tracing()``, the launches at a pass width of 256 (the
+    kernels of ``csrc/fused_assign_tc_ring.cuh`` and
+    ``csrc/fused_assign_tc_tma.cuh``) whose table width calls for more
+    than one pass count the passes they ran, up to the highest live
+    column, and the width's passes (``profiling.PASS_COUNTERS``): on the
+    card in ``profiling.pass_tally``, on the CPU from ``log_w`` here.
     """
     _check_variant(family_name, VARIANTS, x_raw)
     planes = _PLANES[ll_route(family_name, ll_precision)]
     tensor_cores = planes > 0
+    k = log_w.shape[0]
     if cta_points not in CTA_POINTS or (cta_points != FIT_CTA_POINTS and (
-            family_name != "precomputed" or log_w.shape[0] > 128
-            or tensor_cores)):
+            family_name != "precomputed" or k > 128 or tensor_cores)):
         raise ValueError(f"cta_points={cta_points}: {FIT_CTA_POINTS} for "
                          "every variant, 64 or 256 only for 'precomputed' at "
                          "K <= 128 under ll_precision='highest'")
+    tma = planes == 1 and family_name in _BF16 and k > 64
+    ring = planes == 2 and k > 64   # csrc/fused_assign_tc_ring.cuh's kernel
+    counted = (tma or ring) and profiling.tracing()
     if x.device.type == "cpu":
+        if counted:
+            _count_passes(log_w)
         if torch.is_tensor(seed):
             seed = int(seed.reshape(-1)[0])
         return fused_assign_reference(x, valid, phi_mat, log_w, seed,
@@ -563,7 +605,6 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
                                       family_name=family_name, x_raw=x_raw,
                                       ll_precision=ll_precision)
     n = x.shape[0]
-    k = log_w.shape[0]
     hybrid = family_name == "hybrid"
     pairs, d, f = _rows_arg(x_raw if hybrid else x, family_name)
     if not torch.is_tensor(seed):
@@ -586,8 +627,6 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     # rows in 16-byte pieces from a 16-byte boundary on.  A cache in
     # another layout is copied into the port's for this call, with a
     # warning: the caller should lay it out once (pad_bf16_rows)
-    tma = planes == 1 and family_name in _BF16 and k > 64
-    ring = planes == 2 and k > 64   # csrc/fused_assign_tc_ring.cuh's kernel
     if (tma and not _aligned_rows(x)) or (
             planes == 2 and family_name in _BF16 and x.data_ptr() % 16):
         warnings.warn(
@@ -612,8 +651,12 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
             planes, log_w.data_ptr(), seed.data_ptr(), int(tile_off),
             int(bool(hard)),
             int(tile), n, f, k)
+    # the tally is made at the first such call, traced or not, so that a
+    # traced span holds no launch of its own
+    tally = profiling.pass_tally(x.device) if tma or ring else None
     outs = (labels.data_ptr(), sub.data_ptr(), scratch.data_ptr(),
-            stats.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+            stats.data_ptr(), _ptr(tally) if counted else None,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if family_name in _BF16:
         rc = lib.dpmm_fused_assign_bf16(x.data_ptr(), x.stride(0),
                                         _ptr(x_raw),

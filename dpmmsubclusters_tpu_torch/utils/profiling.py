@@ -40,8 +40,11 @@ per sweep ``table_math.sample_params``, ``kernel_a.assign_and_stats``,
 conjugate math (:func:`family_span`), ``table_math.family.draw``,
 ``.posterior`` and ``.marginal``; and ``host_sync.<site>`` with the counters
 ``sweeps`` and ``smart_sums`` (the smart pass's per-slot sums taken by
-kernel B on a card).  The record belongs to the process and is not
-thread-safe: the sampler drives one card from one thread.
+kernel B on a card).  Kernel A's counters :data:`PASS_COUNTERS` are kept on
+the card (:func:`pass_tally`: its launches add to them in stream order, so
+counting waits for nothing) and read into :func:`counters` when it is
+called.  The record belongs to the process and is not thread-safe: the
+sampler drives one card from one thread.
 """
 from __future__ import annotations
 
@@ -58,6 +61,11 @@ import numpy as np
 import torch
 
 MAX_SPANS = 4096          # closed spans kept in memory, the newest
+# kernel A's tensor-core launches at a pass width of 256 whose table width
+# calls for more than one pass: the passes they ran (up to the highest live
+# column) and the passes the width calls for
+PASS_COUNTERS = ("kernel_a.passes_run", "kernel_a.passes_width")
+_TALLY = {}               # device -> int64 [2] of PASS_COUNTERS on the card
 
 _autograd_profiler = torch.autograd.profiler
 
@@ -259,9 +267,27 @@ def spans() -> list:
     return list(_REC.closed)
 
 
+def pass_tally(device) -> torch.Tensor:
+    """The card's tally of :data:`PASS_COUNTERS`, int64 [2] on ``device``,
+    to which kernel A's launches add while :func:`tracing` (made once a
+    device, zeros)."""
+    tally = _TALLY.get(device)
+    if tally is None:
+        tally = _TALLY[device] = torch.zeros(2, dtype=torch.int64,
+                                             device=device)
+    return tally
+
+
 def counters() -> dict:
-    """The counters, by name."""
-    return dict(_REC.counters)
+    """The counters, by name, with the cards' pass tallies added where
+    they counted any (reading a tally waits for the card)."""
+    out = dict(_REC.counters)
+    for tally in _TALLY.values():
+        counts = tally.tolist()
+        if counts[1]:
+            for name, n in zip(PASS_COUNTERS, counts):
+                out[name] = out.get(name, 0) + n
+    return out
 
 
 def phases(root: Span) -> dict:
@@ -273,8 +299,11 @@ def phases(root: Span) -> dict:
 
 
 def reset() -> None:
-    """Drop every span and counter (open spans close as usual)."""
+    """Drop every span and counter (open spans close as usual) and zero
+    the cards' pass tallies."""
     _REC.reset()
+    for tally in _TALLY.values():
+        tally.zero_()
 
 
 @contextlib.contextmanager

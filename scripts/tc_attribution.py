@@ -23,7 +23,8 @@ which the ablated kernels make nonsense of.  One JSON line a (variant,
 shape), with the card's name and power limit.
 
     python scripts/tc_attribution.py [--src DIR] [--variants a,b] \\
-        [--shapes gaussian,hybrid,precomputed,bfloat16] [--design NAME]
+        [--shapes gaussian,hybrid,precomputed,bfloat16] [--design NAME] \\
+        [--live N]
 
 ``--src`` names another tree's ``csrc`` (a ``git archive`` of an earlier
 commit): its kernels are built and driven through this tree's wrappers
@@ -32,7 +33,9 @@ commit): its kernels are built and driven through this tree's wrappers
 at a pass width of 256 takes; "ring": fused_assign_tc_ring.cuh, the two
 planes there; "column halves": fused_assign_tc.cuh, the rest); by default
 the newest one the source holds, at the shapes that take it (``--shapes``
-overrides).  Needs a card and nvcc.
+overrides).  ``--live N`` makes the slots past the first N inactive
+(log_w -inf), as the 10M cells' K=100 at a table width of 256.  Needs a
+card and nvcc.
 """
 from __future__ import annotations
 
@@ -132,10 +135,11 @@ PATCHES = {
              "      for (int i = 0; i < 0; ++i) {"),
         ],
         "no_epilogue": [
+            # the fold is ring::fold_pass, a function of its own: return
             ("const int col0 = pass * (N / 2) + 2 * (lane & 3);",
              "const int col0 = pass * (N / 2) + 2 * (lane & 3);\n      if "
              "(col0 >= 0) { best[0].v = acc[0]; best[1].v = acc[1]; "
-             "continue; }"),
+             "return; }"),
         ],
     },
 }
@@ -228,6 +232,9 @@ def main() -> int:
     ap.add_argument("--shapes", default="")
     ap.add_argument("--ll-precision", default="default")
     ap.add_argument("--design", default="", choices=("",) + tuple(HEADERS))
+    ap.add_argument("--live", type=int, default=0,
+                    help="slots past the first LIVE inactive (log_w -inf), "
+                         "as the 10M cells' K=100 at a width of 256")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tc_attribution: CUDA is not available", file=sys.stderr)
@@ -246,6 +253,8 @@ def main() -> int:
     main_load = _build.load
     for shape in shapes:
         case = shape_case(torch, dev, shape)
+        if args.live:
+            case.log_w[args.live:] = float("-inf")
         kw = dict(case.kw(), ll_precision=args.ll_precision)
         for name in names:
             _build.load = lambda lib=libs[name]: lib
@@ -259,7 +268,8 @@ def main() -> int:
                                        "assign_tma_kernel",
                                        "stage_phi_kernel"))
             print(json.dumps(dict(design=design, variant=name, shape=shape,
-                                  k=case.k, f=case.phi_mat.shape[0],
+                                  k=case.k, live=args.live or case.k,
+                                  f=case.phi_mat.shape[0],
                                   ll_precision=args.ll_precision,
                                   pass_ms=pass_ms, by_kernel=by_kernel,
                                   card=smi)), flush=True)

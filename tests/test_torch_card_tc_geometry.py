@@ -15,7 +15,11 @@ pass width of 256 (``csrc/fused_assign_tc_tma.cuh``, its rows copied by
 a tensor map) the same way, with its launch count: K in {65, 128, 129,
 256} by F in {561, 2145, 2556}, ragged N with odd tile counts, rows
 holding NaN, a cache view off a 16-byte boundary, "hybrid", two launches
-bit for bit.
+bit for bit.  Both designs at a pass width of 256 run only the passes up
+to the highest live column: a table width of 256 whose slots past a live
+prefix of 1, 64, 127, 128, 129 or 255 are inactive, whose only live slot
+past 127 is 200, or with no live slot, gives the plain version's labels
+and counts the passes it ran (one or two) in the pass tally.
 
 Imports only torch, numpy, pytest and the port, so it runs where JAX is
 not installed:
@@ -75,13 +79,14 @@ def _case(rng, family, n, d, k, dev):
     return x, valid, phi, log_w
 
 
-def _check(x, valid, phi, log_w, family, route):
+def _check(x, valid, phi, log_w, family, route, x_raw=None):
     """The kernel against the plain version under ``route``, hard and soft
     (module note)."""
     k = log_w.shape[0]
     for hard in (True, False):
         args = (x, valid, phi, log_w, SEED, TILE_OFF, hard)
-        kw = dict(tile=TILE, family_name=family, ll_precision=route)
+        kw = dict(tile=TILE, family_name=family, ll_precision=route,
+                  x_raw=x_raw)
         lk, sk_, _ = sk.fused_assign(*args, **kw)
         lp, sp, _ = sk.fused_assign_reference(*args, **kw)
         rows = sk.feature_rows(x, family)
@@ -281,3 +286,55 @@ def test_tma_launch_count(rng, cuda, k, launches):
                     family_name="precomputed", ll_precision="bf16")
     assert sk.fused_assign.tma_launches["bfloat16"] == launches
     assert sk.fused_assign.tensor_core_launches["bfloat16"] == 2
+
+
+# ---- the passes up to the highest live column at a pass width of 256: the
+# ring (three-pass split) and the tensor-map kernel (one bf16 pass) at a
+# table width of 256 run ceil(k_hi / 128) passes, k_hi one past the highest
+# slot whose log_w is not -inf (at least one pass)
+LIVE = {f"prefix {h}": range(h) for h in (1, 64, 127, 128, 129, 255)}
+LIVE.update({"prefix 100 and 200": [*range(100), 200], "none": []})
+WIDE = (("precomputed", "high"), ("gaussian", "high"),
+        ("bfloat16", "default"), ("hybrid", "default"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,route", WIDE)
+@pytest.mark.parametrize("live", list(LIVE))
+def test_wide_passes_follow_the_highest_live_column(rng, cuda, family, route,
+                                                    live):
+    """639 points (five 128-point tiles: the last cluster's partner walks
+    an empty tile), F = 561 (nine slices a pass), table width 256: the
+    plain version's labels and sub-labels, two launches bit for bit, and
+    the pass tally's passes run and passes of the width."""
+    from dpmmsubclusters_tpu_torch.sampler.driver import bf16_features
+    from dpmmsubclusters_tpu_torch.utils import profiling
+
+    x, valid, phi, log_w = _case(rng, "precomputed" if family ==
+                                 "precomputed" else "gaussian", 639, 32, 256,
+                                 cuda)
+    keep = torch.zeros(256, dtype=torch.bool, device=cuda)
+    keep[list(LIVE[live])] = True
+    log_w = torch.where(keep, log_w, float("-inf"))
+    x_raw = None
+    if family in ("bfloat16", "hybrid"):
+        x_raw = x if family == "hybrid" else None
+        x = bf16_features(TG, x, SEED)
+    k_hi = max(LIVE[live], default=0) + 1
+    sk.reset_launches()
+    profiling.reset()
+    profiling.enable()
+    try:
+        _check(x, valid, phi, log_w, family, route, x_raw)
+        counts = profiling.counters()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    run = 1 if k_hi <= 128 else 2
+    assert sk.live_passes(log_w) == run
+    # four launches: hard and soft, each against a second launch
+    assert (counts["kernel_a.passes_run"],
+            counts["kernel_a.passes_width"]) == (4 * run, 8)
+    wide = (sk.fused_assign.ring_launches if route == "high"
+            else sk.fused_assign.tma_launches)
+    assert wide[family] == 4

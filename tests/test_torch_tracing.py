@@ -4,6 +4,7 @@ host reads record only while tracing is on, tracing leaves the chain bit
 for bit as it was, a torch profiler's trace holds the port's span names,
 a fit's ``history.phases``, and the benchmark's readers of the record
 (``dpmmbench/metrics/``)."""
+import functools
 import importlib.util
 import json
 import pathlib
@@ -285,3 +286,95 @@ def test_device_spans_resolve_at_fences_without_a_sync(monkeypatch):
     first, second = profiling._REC.closed
     assert first is a and a.seconds >= 0.005 and second.start >= a.end
     assert profiling.phases(a) == {"host_loop.step_block": a.seconds}
+
+
+def _assign_case(k, live, family="gaussian", n=300, d=2):
+    """Kernel A's inputs at table width ``k`` with the slots ``live`` active
+    (log_w -inf elsewhere): Gaussian points, or their bf16 cache."""
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    gen = torch.Generator().manual_seed(k + len(live))
+    x = torch.randn((n, d), generator=gen)
+    f = priors.GAUSSIAN.feature_dim(d)
+    if family == "bfloat16":
+        x = sk.pad_bf16_rows(priors.GAUSSIAN.features(x).bfloat16())
+    phi = torch.randn((f, 2 * k), generator=gen) * 0.1
+    log_w = torch.full((k,), float("-inf"))
+    if live:
+        log_w[list(live)] = -float(np.log(len(live)))
+    return x, torch.ones(n, dtype=torch.bool), phi, log_w
+
+
+@pytest.mark.parametrize("family", ["gaussian", "bfloat16"])
+@pytest.mark.parametrize("k,live,want", [
+    (256, range(100), (1, 2)),
+    (256, [*range(100), 200], (2, 2)),
+    (256, [], (1, 2)),
+    (200, [0, 150], (2, 2)),
+    (128, range(100), None)])
+def test_plain_kernel_a_counts_the_passes_of_its_live_columns(family, k,
+                                                              live, want):
+    """Under "default" (the ring's three-pass split on built rows, the
+    tensor-map kernel's one bf16 pass on a bf16 cache) at a table width
+    above 128, the plain version counts what the card's launch adds to its
+    pass tally: the passes up to the highest live slot, of the width's two.
+    A width of one pass counts nothing."""
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    x, valid, phi, log_w = _assign_case(k, live, family)
+    profiling.enable()
+    sk.fused_assign(x, valid, phi, log_w, 5, family_name=family,
+                    ll_precision="default")
+    profiling.enable(False)
+    counts = profiling.counters()
+    if want is None:
+        assert not set(profiling.PASS_COUNTERS) & set(counts)
+    else:
+        assert tuple(counts[n] for n in profiling.PASS_COUNTERS) == want
+    assert sk.live_passes(log_w) == (want[0] if want else 1)
+
+
+def test_plain_kernel_a_counts_no_passes_off_the_two_wide_kernels():
+    """The exact route and one bf16 pass over float32 rows take neither
+    kernel at a pass width of 256: nothing is counted."""
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    x, valid, phi, log_w = _assign_case(256, range(100))
+    profiling.enable()
+    for route in ("highest", "bf16"):
+        sk.fused_assign(x, valid, phi, log_w, 5, family_name="gaussian",
+                        ll_precision=route)
+    profiling.enable(False)
+    assert profiling.counters() == {}
+
+
+def test_pass_counts_need_tracing_and_reset_drops_them():
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    x, valid, phi, log_w = _assign_case(256, range(100))
+    call = functools.partial(sk.fused_assign, x, valid, phi, log_w, 5,
+                             family_name="gaussian", ll_precision="default")
+    call()
+    assert profiling.counters() == {}
+    profiling.enable()
+    call()
+    call()
+    assert profiling.counters() == {"kernel_a.passes_run": 2,
+                                    "kernel_a.passes_width": 4}
+    profiling.reset()
+    assert profiling.counters() == {}
+
+
+def test_assign_pass_pct_reads_the_pass_counts():
+    """``dpmmbench/metrics/assign_pass_pct.py``: 100 x passes run / passes
+    the width calls for, None where no such launch was counted."""
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    read = _reader("assign_pass_pct")
+    assert read(None) is None
+    profiling.enable()
+    for live in (range(100), range(100), range(100), [*range(100), 200]):
+        sk.fused_assign(*_assign_case(256, live), 5, family_name="gaussian",
+                        ll_precision="default")
+    profiling.enable(False)
+    assert read(None) == pytest.approx(100.0 * 5 / 8)
