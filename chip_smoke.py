@@ -20,9 +20,8 @@ kernels at their full sizes (kernel C's column sums and kernel A's 64-,
 128- and 256-point blocks at 1M x 640, K=128, whose labels must not depend
 on the block; each of kernel D's 8 stage sets at 1M x 561, K=128), runs
 the card-only tests (tests/test_torch_card_*.py, in a subprocess with no
-conftest; every one must pass), runs the port's bench entry points (the
-tile study, the ablation, and the flagship bench, which must reach K=64
-and whose one profiled sweep must name kernel A), then drives ``fit``
+conftest; every one must pass), runs the kernel studies' entry points
+(the tile study and the ablation), then drives ``fit``
 through every path of the port, at the config's default ll_precision
 ("default") unless it names another:
 
@@ -1640,16 +1639,12 @@ def studies_main() -> int:
     return 0
 
 
-def run_studies(torch, smi: str) -> dict:
-    """The port's bench entry points, each with every launch count set to 0
-    just before it and read just after: the tile study and the ablation at
-    their full sizes, then the flagship bench, whose one profiled sweep
-    (profiling.trace) must name kernel A.  Returns the launch counts by
-    path and the bench's line."""
-    from dpmmsubclusters_tpu_torch.benchmarks import bench
+def run_studies(torch) -> dict:
+    """The kernel studies' entry points at their full sizes, the tile study
+    and the ablation, each with every launch count set to 0 just before it
+    and read just after.  Returns the launch counts by path."""
     from dpmmsubclusters_tpu_torch.benchmarks import kernel_ablate as kab
     from dpmmsubclusters_tpu_torch.benchmarks import kernel_tile_study as kts
-    from dpmmsubclusters_tpu_torch.ops import _build
     from dpmmsubclusters_tpu_torch.ops import study_kernels as stk
     from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
 
@@ -1672,30 +1667,6 @@ def run_studies(torch, smi: str) -> dict:
     out["ablate"] = dict(stk.kernel_ablate.launches)
     log(f"ablation ran in {time.perf_counter() - t0:.1f} s, launches "
         f"{out['ablate']}")
-    free(torch)
-    reset()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        t0 = time.perf_counter()
-        line = bench.main(["--trace", tmp])
-        secs = time.perf_counter() - t0
-        traces = list(pathlib.Path(tmp).glob("trace_*.json"))
-        assert len(traces) == 1, traces
-        text = traces[0].read_text()
-    out["bench"] = dict(fused_assign=dict(sk.fused_assign.launches),
-                        stats_from_labels=dict(sk.stats_from_labels.launches))
-    assert line["k"] == K_TRUE_FLAG, line
-    out["bench"]["tensor_core"] = dict(sk.fused_assign.tensor_core_launches)
-    assert out["bench"]["fused_assign"]["precomputed"] > 0, out["bench"]
-    # the bench runs at the config's default precision: the tensor cores
-    assert (out["bench"]["tensor_core"]["precomputed"]
-            == out["bench"]["fused_assign"]["precomputed"]), out["bench"]
-    assert "assign_tc_kernel" in text, "the bench's trace names no kernel A"
-    log(f"bench: {line['ms_per_sweep']:.3f} ms/sweep, {line['value']} "
-        f"points/s, K={line['k']} in {secs:.1f} s ({smi}); its profiled "
-        f"sweep names kernel A ({text.count('assign_tc_kernel')} mentions); "
-        f"launches {out['bench']}")
-    out["bench_line"] = line
     free(torch)
     return out
 
@@ -2435,8 +2406,8 @@ def main() -> int:
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
     run_card_tests(smi)
     log(f"card tests done at {time.perf_counter() - t_start:.1f} s")
-    studies = run_studies(torch, smi)
-    log(f"studies and bench done at {time.perf_counter() - t_start:.1f} s")
+    studies = run_studies(torch)
+    log(f"studies done at {time.perf_counter() - t_start:.1f} s")
     launches = {}      # the main path of each variant: launch counts
     exact = {}         # the same under ll_precision="highest"
     split = {}         # ... and under "high" (the three-pass split)

@@ -1,7 +1,5 @@
 """The port's benchmarks, each a module run with ``python -m``:
 
-* :mod:`.bench` -- Gibbs-sweep throughput on the flagship 1M x 32-d
-  Gaussian configuration (one JSON line);
 * :mod:`.kernel_tile_study` -- kernel C's column sums and kernel A at each
   hash tile and block size;
 * :mod:`.kernel_ablate` -- kernel D's stage ablation.

@@ -1,9 +1,11 @@
 """The port's bench slice on the CPU: kernels C (column sums) and D (the
 stage ablation) and kernel A's tile-study mode, held against the JAX
 package's study kernels run through the Pallas interpreter on identical
-inputs; the profiling helpers; the bench entry point.  The CUDA kernels
-run only on a card: tests/test_torch_card_bench.py, and ``python3
+inputs; the profiling helpers; the studies' entry points.  The CUDA
+kernels run only on a card: tests/test_torch_card_bench.py, and ``python3
 chip_smoke.py`` at the studies' full sizes."""
+import torch_threads  # noqa: F401
+
 import functools
 import importlib.util
 import json
@@ -18,7 +20,6 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
 from dpmmsubclusters_tpu.ops import pallas_sweep as ps  # noqa: E402
-from dpmmsubclusters_tpu_torch.benchmarks import bench  # noqa: E402
 from dpmmsubclusters_tpu_torch.benchmarks import kernel_ablate as tka  # noqa: E402,E501
 from dpmmsubclusters_tpu_torch.benchmarks import kernel_tile_study as tts  # noqa: E402,E501
 from dpmmsubclusters_tpu_torch.ops import study_kernels as stk  # noqa: E402
@@ -280,26 +281,6 @@ def test_median_ms_and_card_on_the_cpu():
     ms = profiling.median_ms(lambda: calls.append(1), "cpu", reps=3)
     assert ms >= 0.0 and len(calls) == 4      # one warm-up
     assert profiling.card("cpu") == "cpu"
-
-
-def test_bench_prints_its_json_line_on_the_cpu(capsys, monkeypatch):
-    monkeypatch.setenv("BENCH_SMALL", "1")
-    run = bench.run      # the small config at a rehearsal's point count
-    monkeypatch.setattr(bench, "run", lambda *a, **kw: run(*a, **kw, n=1500))
-    out = bench.main(["--device", "cpu"])
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert line == out
-    assert set(line) == {"metric", "value", "unit", "vs_baseline", "k",
-                         "ms_per_sweep", "device"}
-    assert line["metric"] == "gibbs_sweep_throughput_1Mx32d"
-    assert line["unit"] == "points/s" and line["device"] == "cpu"
-    assert line["value"] > 0 and 1 <= line["k"] <= 32
-
-
-def test_bench_refuses_a_missing_card(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        bench.run("cuda", small=True, n=100)
 
 
 def test_study_mains_rehearse_on_the_cpu(capsys):

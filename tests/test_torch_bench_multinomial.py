@@ -4,6 +4,8 @@ plain kernels and posterior, its count generator, a tiny copy of its cell
 run end to end through the harness, the roofline counts of its work, and
 the port's family spans under both families.  The benchmark is imported
 by path, as ``dpmmbench/tests/tinybench.py`` does."""
+import torch_threads  # noqa: F401
+
 import importlib.util
 import math
 import pathlib

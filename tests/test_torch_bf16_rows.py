@@ -4,6 +4,8 @@ first F columns the cache.  ``bf16_features`` builds it so,
 ``pad_bf16_rows`` and ``points_from_jax`` copy a cache into it, and the
 plain kernels A and B give the same bits on it as on the unpadded cache;
 the auto cache's budget counts the padded rows."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

@@ -16,6 +16,8 @@ not installed:
         tests/test_torch_card_*.py
 
 Every test skips without a CUDA card (``gpu`` marker)."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,8 @@ checkpoint in the JAX package, and on one loaded table the port's
 Tolerances: integer outputs (labels, steps, keys) exactly; deterministic
 float32 math to ``rtol=1e-5, atol=1e-6``; sampled runs to the 4-corner
 K / NMI gates."""
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import numpy as np

@@ -3,6 +3,8 @@ CPU: mirrors of tests/test_config_behaviors.py::
 test_compat_reference_named_surface, tests/test_validation.py::
 test_params_file_schema_validated and tests/test_fit_e2e.py::
 test_params_file_mode, with ``device="cpu"`` / ``--device cpu``."""
+import torch_threads  # noqa: F401
+
 import json
 
 import numpy as np

@@ -9,6 +9,8 @@ interpreter.  Tolerance: 1e-5 of the sum of the terms' magnitudes plus
 1e-6 (float32 sums of the same terms in other orders).  The kernel runs on
 the card: ``tests/test_torch_card_bench.py``, where its bits must equal the
 model's."""
+import torch_threads  # noqa: F401
+
 import functools
 import importlib.util
 import pathlib

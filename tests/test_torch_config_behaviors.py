@@ -5,6 +5,8 @@ generators, or the reference test's own construction) go to the port's
 NMI, predict against labels, where the outliers land); the deterministic
 parts (the standardization's scale, the de-transformed parameters)
 against the numbers the reference test states."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

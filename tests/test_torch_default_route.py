@@ -13,6 +13,8 @@ cancel to O(1) at their own points, which one bf16 pass gets wrong by tens
 to hundreds of nats); and the 2000-corner chain with smart splits, which
 the earlier one-pass route left at K=1 for tens of sweeps.  The kernel itself
 runs only on a card: tests/test_torch_card_default_route.py."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

@@ -2,6 +2,8 @@
 identical inputs, both held to an independent float64 oracle of the
 Dirichlet-multinomial marginal likelihood, and the parameter draws checked
 by their moments."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

@@ -11,6 +11,8 @@ package's.
 Tolerances: integer outputs exactly; the moments at rtol 1e-6 (float32
 sums in the JAX package, float64 in the port); sampled runs to the
 4-corner gates (K=4, NMI >= 0.999)."""
+import torch_threads  # noqa: F401
+
 import json
 
 import numpy as np

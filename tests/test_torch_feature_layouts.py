@@ -5,6 +5,8 @@ Pallas kernels run through the TPU interpreter on the same bf16 rows,
 ``fit`` with each layout, and ``interop.points_from_jax``.  The CUDA
 kernels themselves run only on a card: tests/test_torch_card_feature_layouts.py,
 and ``python3 chip_smoke.py`` at the fits' shapes."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

@@ -3,6 +3,8 @@
 family, table-capacity tiers past 128, the log posterior of a JAX
 ``init_state`` table carried over by ``interop``, and the entry points'
 refusals."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

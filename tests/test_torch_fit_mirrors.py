@@ -3,6 +3,8 @@ on the port (``device="cpu"``): the same data, held to the reference
 tests' gates -- smart splits recover a mixture of well-separated
 components quickly, and a fused fit with ground truth keeps one NMI a
 block in a history that lines up with ``history.k``."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

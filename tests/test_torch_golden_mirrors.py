@@ -22,6 +22,8 @@ redraws.  None of these inputs reaches a known reference-side fault
 which these tables never fill), so the JAX package passes the same
 inputs.
 """
+import torch_threads  # noqa: F401
+
 import math
 
 import numpy as np

@@ -2,6 +2,8 @@
 ``dpmmsubclusters_tpu_torch.io.npy.load_data``), and the port's
 independence from JAX: no module of the port, and not chip_smoke.py,
 imports ``jax`` or ``dpmmsubclusters_tpu``."""
+import torch_threads  # noqa: F401
+
 import ast
 import pathlib
 

@@ -4,6 +4,8 @@ device dispatch, and the kernel build's failure mode.  The CUDA kernels
 themselves run only on a card: tests/test_torch_card_kernels.py and
 tests/test_torch_card_stats.py, and ``python3 chip_smoke.py`` at the
 flagship shapes."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

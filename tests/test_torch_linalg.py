@@ -1,6 +1,8 @@
 """The PyTorch port's framework-free pieces and ``ops/linalg.py`` against
 the JAX package: config, generators, metrics, special functions, masked
 Cholesky, triangular solves, and the samplers' moments."""
+import torch_threads  # noqa: F401
+
 import dataclasses
 import subprocess
 import sys

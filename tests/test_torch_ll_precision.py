@@ -5,6 +5,8 @@ CUDA kernel's columns; the 4-corner fit under each setting; and
 that the config's value reaches the kernel's wrapper.  The tensor-core
 kernel itself runs only on a card: tests/test_torch_card_ll_precision.py,
 and ``python3 chip_smoke.py`` at the fits' shapes under both settings."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

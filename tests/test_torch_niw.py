@@ -1,4 +1,6 @@
 """The PyTorch port's NIW family against the JAX one on identical inputs."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

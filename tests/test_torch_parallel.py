@@ -11,6 +11,8 @@ Tolerances: labels, sub-labels, ``history.k`` and table digests exactly
 (on integer data every float32 statistics sum is exact, so the chains are
 bit-identical across rank counts); the moments to float32 rounding of the
 float64 ones; sampled runs to the 4-corner gates (K=4, NMI >= 0.999)."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

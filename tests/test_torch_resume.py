@@ -4,6 +4,8 @@
 path that runs otherwise), the resume's refusals, and mirrors of the JAX
 package's checkpoint tests (tests/test_fit_e2e.py, tests/test_tiering.py,
 tests/test_validation.py)."""
+import torch_threads  # noqa: F401
+
 import json
 
 import numpy as np

@@ -1,6 +1,8 @@
 """The port's sampler modules (assign, table, moves, smart, tiers) against the
 JAX package, with identical tables carried over by ``interop``.
 Deterministic math is compared by tolerance; sampled moves by behaviour."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

@@ -8,6 +8,8 @@ implementation's labels and sub-labels are the Gumbel hash's alone: the
 port's equal the Pallas kernel's (run through the TPU interpreter at the
 same integer seed) bit for bit.  The CUDA kernel's mirror is
 tests/test_torch_card_sampling.py."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

@@ -7,6 +7,8 @@ still plain ``index_add_`` over every row; the card's route,
 ``smart._exact_slot_sums``, run here on the host's ``slot_sums``, gives the
 same bits in any order of the rows and at any split of them over ranks.
 The card's route on the card: tests/test_torch_card_slot_sums.py."""
+import torch_threads  # noqa: F401
+
 import threading
 
 import pytest

@@ -4,6 +4,8 @@ summed in the kernel's order (each chunk's keys over their sorted points,
 then the chunks in order) against the JAX package's Pallas kernel run
 through the TPU interpreter.  The sort kernel itself runs only on a card
 (tests/test_torch_card_stats.py)."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

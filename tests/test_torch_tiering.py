@@ -4,6 +4,8 @@ JAX package's on the same inputs (integers, exactly), a table migrated up
 and back down that keeps sampling, and the reference tests' gates for the
 sampled fits (the golden 4 corners with tiers on; a ``max_clusters`` cap
 that bounds the table)."""
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 

@@ -4,6 +4,8 @@ host reads record only while tracing is on, tracing leaves the chain bit
 for bit as it was, a torch profiler's trace holds the port's span names,
 a fit's ``history.phases``, and the benchmark's readers of the record
 (``dpmmbench/metrics/``)."""
+import torch_threads  # noqa: F401
+
 import functools
 import importlib.util
 import json

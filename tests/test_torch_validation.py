@@ -5,6 +5,8 @@ alike (the same exception type and message pattern), build the same
 preset, and standardize alike (the scale within 1e-4; float32 two-pass
 moments in the JAX package, float64 in the port).  The sampled fits are
 held to the reference test's gate."""
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import numpy as np
