@@ -55,14 +55,16 @@ and profiles 8 steady sweeps of the flagship fit (f32 cache, under
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-a    # kernel A: digests and times
     python3 chip_smoke.py --tc-digests  # kernel A at width 256: digests
+    python3 chip_smoke.py --narrow-digests  # kernel A's resident passes
     python3 chip_smoke.py --kernel-b    # kernel B alone: digests and times
     python3 chip_smoke.py --chain-quality   # 1M x 64-d, seeds 1-5
     python3 chip_smoke.py --huge        # the 10M x 64-d fits alone
     python3 chip_smoke.py --studies     # kernels C, D's column sums, E
 
 ``--tc-digests`` prints kernel A's digests at a table width of 256 with
-inactive slots (:data:`TC_DIGESTS`), one JSON line (a copy in another tree
-reads that tree's).
+inactive slots (:data:`TC_DIGESTS`), ``--narrow-digests`` those at the
+narrow widths the resident kernel takes (:data:`NARROW_DIGESTS`), one JSON
+line each (a copy in another tree reads that tree's).
 ``--kernel-a`` prints the exact route's digests and kernel A's times in
 each variant under every ll_precision, each with its share of the bound,
 the tile study's blocks and kernel D's stage sets; ``--kernel-b`` prints kernel B's digests and its time in each variant
@@ -121,6 +123,8 @@ SOURCES = {
         "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc_tma.cuh",
     "fused_assign_tc_ring":
         "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc_ring.cuh",
+    "fused_assign_tc_resident":
+        "dpmmsubclusters_tpu_torch/csrc/fused_assign_tc_resident.cuh",
     "stats_from_labels": "dpmmsubclusters_tpu_torch/csrc/stats_from_labels.cu",
     "build_gate": "chip_smoke.py",      # GATE_KERNEL, built by _build.py
     "column_sum": "dpmmsubclusters_tpu_torch/csrc/column_sum.cu",
@@ -806,6 +810,32 @@ TC_DIGESTS = {
 }
 
 
+# Kernel A under "default" at the narrow pass widths that the resident
+# kernel takes (csrc/fused_assign_tc_resident.cuh, sk.resident_bufs), on
+# a_digest_inputs: the multinomial counts at K=64 (F=101, two slices), all
+# slots live and with the slots past the first 20 inactive (the 20M counts
+# cell's width and live K), and the f32 cache at D=2 (F=6) at K=8 and 32.
+# (Rows at F=561, the flagship's, never take it: nine slices.)  sha256 of
+# the labels and sub-labels, hard then soft, as fused_assign_tc.cuh's
+# 64-point blocks (91a32d1, ``python3 chip_smoke.py --narrow-digests`` from
+# a checkout of that commit on an NVIDIA H100 80GB HBM3) gave them: the
+# same products in the same order, so the same bits
+NARROW_CASES = {"multinomial K=64 live 20": ("multinomial", 100, 64, 20),
+                "multinomial K=64": ("multinomial", 100, 64, None),
+                "precomputed D=2 K=8": ("precomputed", 2, 8, None),
+                "precomputed D=2 K=32": ("precomputed", 2, 32, None)}
+NARROW_DIGESTS = {
+    "multinomial K=64 live 20":
+        "ae2eeead173e94d776028ff94fb6b7ec336cf2df3abbb6a4a0bf3874da4d1682",
+    "multinomial K=64":
+        "134f2a9f1cc3f93a14cb51942d1ebeeddd2c0b19dad47b6ac5926e0d95fc1c27",
+    "precomputed D=2 K=8":
+        "35387a6a3d0c2ca0eaedd3d7a53d599d2f0a5e20db49c77f08a80783a02e413c",
+    "precomputed D=2 K=32":
+        "eda4b1d5982f34107a1b933d8d907b09a0708fcc2bf9b1526e3419babae34eac",
+}
+
+
 def a_digest_inputs(torch, dev, family: str, d: int, k: int):
     """(args, kwargs) of kernel A on its digest input (numpy-seeded; see
     A_DIGEST_CASES)."""
@@ -901,6 +931,45 @@ def tc_digests(torch, sk, dev) -> dict:
             out[f"{family} K=256 live {name}"] = h.hexdigest()
         del args, kw, x
     return out
+
+
+def narrow_digests(torch, sk, dev) -> dict:
+    """sha256 of kernel A's labels and sub-labels (hard, then soft) under
+    "default" on each :data:`NARROW_CASES` input (:data:`NARROW_DIGESTS`)."""
+    out = {}
+    for name, (family, d, k, live) in NARROW_CASES.items():
+        args, kw = a_digest_inputs(torch, dev, family, d, k)
+        x, valid, phi, log_w, seed, tile_off = args
+        kw["ll_precision"] = "default"
+        if live is not None:
+            log_w = log_w.clone()
+            log_w[live:] = float("-inf")
+        h = hashlib.sha256()
+        for hard in (True, False):
+            labels, sub, _ = sk.fused_assign(x, valid, phi, log_w, seed,
+                                             tile_off, hard, **kw)
+            h.update(labels.cpu().numpy().tobytes())
+            h.update(sub.cpu().numpy().tobytes())
+        out[name] = h.hexdigest()
+        del args, kw, x
+    return out
+
+
+def narrow_digests_main() -> int:
+    """``--narrow-digests``: :func:`narrow_digests` with whichever
+    dpmmsubclusters_tpu_torch this directory holds, one JSON line."""
+    import torch
+
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+    from dpmmsubclusters_tpu_torch.utils import profiling
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    print(json.dumps({"narrow_digests": narrow_digests(torch, sk, dev),
+                      "card": profiling.card(dev)}), flush=True)
+    return 0
 
 
 def tc_digests_main() -> int:
@@ -1723,6 +1792,9 @@ def run_fit(torch, name: str, x, gt, variant, **kw) -> dict:
     # fused_assign_tc_ring.cuh
     counts["tma"] = dict(sk.fused_assign.tma_launches)
     counts["ring"] = dict(sk.fused_assign.ring_launches)
+    # at a pass width <= 128 over at most two slices, the resident kernel
+    # of fused_assign_tc_resident.cuh
+    counts["resident"] = dict(sk.fused_assign.resident_launches)
     # the smart pass's exact per-slot sums on kernel B (sampler/smart.py)
     counts["slot_sums"] = sk.slot_sums.launches
     nmi = dpmm.nmi(gt, res.labels)
@@ -2326,7 +2398,7 @@ def run_distributed(torch, ref: dict, smi: str) -> dict:
 
 
 # the gpu-marked tests of tests/test_torch_card_*.py (kernels A-E on the card)
-CARD_TESTS = 298
+CARD_TESTS = 303
 
 
 def run_card_tests(smi: str) -> int:
@@ -2401,6 +2473,10 @@ def main() -> int:
     assert digests == TC_DIGESTS, ("kernel A at width 256 differs from the "
                                    "kernels that ran every pass", digests)
     log(f"kernel A's width-256 digests equal those of every pass: {digests}")
+    digests = narrow_digests(torch, sk, dev)
+    assert digests == NARROW_DIGESTS, ("kernel A's narrow passes differ from "
+                                       "the 64-point blocks'", digests)
+    log(f"kernel A's narrow digests equal the 64-point blocks': {digests}")
     kernels["build_gate"] = build_gate(torch, _build, smi)
     kernels.update(check_study_kernels(torch, dev, smi))
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
@@ -2655,8 +2731,8 @@ def split_rows(report: dict, kernels: dict, variant: str, counts: dict,
     """The report's rows of kernel A's three-pass split on one fit
     (``counts``, :func:`run_fit`'s): the ring's launches (K > 64,
     fused_assign_tc_ring.cuh) and the rest (K <= 64, fused_assign_tc.cuh's
-    kernel, built by fused_assign_tc3.cu), each with the check of its own
-    kernel."""
+    kernel, built by fused_assign_tc3.cu, or where F is two slices or
+    fewer the resident kernel), each with the check of its own kernel."""
     name = f"fused_assign[{variant}]{suffix}"
     n_split = counts["tensor_core"][variant]
     n_ring = counts["ring"][variant]
@@ -2668,15 +2744,19 @@ def split_rows(report: dict, kernels: dict, variant: str, counts: dict,
                         f"256: K > 64)",
             "launches": n_ring, **kernels[name]})
     if n_split > n_ring:
+        # where the rule gave them the resident kernel (F of two slices)
+        resident = counts.get("resident", {}).get(variant, 0) > 0
         report["kernels"].append({
             "name": name + (" K<=64" if n_ring else ""), "route": "cuda",
-            "source": SOURCES["fused_assign_tc3"],
+            "source": SOURCES["fused_assign_tc_resident" if resident
+                              else "fused_assign_tc3"],
             "replaces": f"{REPLACES['fused_assign']} ({what}, pass width "
-                        f"<= 128: K <= 64, fused_assign_tc.cuh)",
+                        f"<= 128: K <= 64)",
             "launches": n_split - n_ring, **kernels[NARROW_SPLIT[variant]]})
 
 
 MODES = {"--kernel-a": kernel_a_main, "--tc-digests": tc_digests_main,
+         "--narrow-digests": narrow_digests_main,
          "--kernel-b": kernel_b_main,
          "--chain-quality": chain_quality_main, "--huge": huge_main,
          "--studies": studies_main}

@@ -141,6 +141,30 @@ struct Bf16Rows {
   }
 };
 
+// A narrow pass's rows as fused_assign_tc_resident.cuh streams them: a
+// tile of 64 rows is 64 x ``pitch`` contiguous bytes from ``src``, of which
+// a row's first ``width`` values of ``elem`` bytes are read: the raw points
+// (built rows, ``pairs`` their column map), the f32 cache, or the bf16
+// cache with its row pitch.
+enum TileKind { kTileF32 = 0, kTileBuilt = 1, kTileBf16 = 2 };
+struct TileRows {
+  const unsigned char* src;
+  const int32_t* pairs;
+  int pitch, width, elem, kind;
+};
+inline TileRows tile_rows(const CacheRows& r) {
+  return {reinterpret_cast<const unsigned char*>(r.feat), nullptr, 4 * r.f,
+          r.f, 4, kTileF32};
+}
+inline TileRows tile_rows(const BuiltRows& r) {
+  return {reinterpret_cast<const unsigned char*>(r.x), r.pairs, 4 * r.d, r.d,
+          4, kTileBuilt};
+}
+inline TileRows tile_rows(const Bf16Rows& r) {
+  return {reinterpret_cast<const unsigned char*>(r.feat), nullptr, 2 * r.ld,
+          r.f, 2, kTileBf16};
+}
+
 // [LEFT K | RIGHT K] x F statistics of the rows by (label, sub, valid) into
 // ``stats``; ``scratch`` holds stats_scratch_floats(n, f, k) floats.
 // Built rows must be the Gaussian or the multinomial column map.

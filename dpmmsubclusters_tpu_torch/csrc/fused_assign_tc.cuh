@@ -78,6 +78,11 @@
 //    fused_assign_tc_tma.cuh, whose rows need no staging; this one stays
 //    for the narrower passes and for one plane over float32 rows, where its
 //    two blocks an SM overlap one block's argmax with the other's product.
+//    A narrower pass over at most two 64-feature slices whose staged phi
+//    fits in one SM beside a ring of 64-point tiles (resident_bufs: the
+//    20M x 100-d counts at K <= 64, any F <= 128) takes
+//    fused_assign_tc_resident.cuh, whose persistent blocks copy phi once a
+//    launch, not once a tile, and run two pipelines of tiles an SM.
 #pragma once
 
 #include "dpmm_kernels.cuh"
@@ -213,6 +218,48 @@ struct Best {
   int j;
   float d;
 };
+
+// The resident kernel's shared memory (one block an SM: all of an SM's 227
+// KB a block may take): the staged phi of the launch, two row tiles of
+// ``planes`` planes a pipeline, a ring of 3-8 tile buffers, two slots of 64
+// bests a pipeline for the exchange between its column halves, and the
+// barriers (phi's, and a full and an empty one a buffer).
+constexpr int kResidentSmemMax = 232448;
+constexpr int kResidentPipes = 2;  // pipelines of two warpgroups a block
+// slices of 64 features a step: with more, the 64-point blocks' two blocks
+// an SM hide more of each step than the resident kernel's pipelines do
+// (rows built at D=32, 9 slices: 1.33 against 1.02 ms a 1M call, H100)
+constexpr int kResidentMaxSlices = 2;
+constexpr int kResidentMinBufs = 3;
+constexpr int kResidentMaxBufs = 8;
+constexpr int kResidentExchBytes =
+    kResidentPipes * 2 * kTcPoints * static_cast<int>(sizeof(Best));
+constexpr int kResidentBarBytes = 8 * (1 + 2 * kResidentMaxBufs);
+__host__ __device__ inline int resident_tile_bytes(int pitch) {
+  return (kTcPoints * pitch + 127) / 128 * 128;
+}
+// The route rule, from the shape alone: the ring's buffers of 64 rows
+// ``pitch`` bytes apart that fit in one SM beside the launch's phi_t
+// (passes x slices x planes x N x 64 bf16 values), the pipelines' row
+// tiles, the exchange and the barriers, up to 8; 0 -- the resident kernel
+// does not take the pass -- where fewer than 3 fit, the pass width is above
+// 128 or F needs more than kResidentMaxSlices slices.
+// (ops/sweep_kernels.py's resident_bufs computes the same.)
+__host__ __device__ inline int resident_bufs(int f, int k, int planes,
+                                             int pitch) {
+  const int width = tc_width(k);
+  if (width > 128 || tc_padded(f) / kTcDepth > kResidentMaxSlices) return 0;
+  const long long phi = static_cast<long long>(tc_passes(k)) *
+                        (tc_padded(f) / kTcDepth) * planes * width *
+                        kTcDepth * 2;
+  const long long room = kResidentSmemMax - 1024 - phi -
+                         2LL * kResidentPipes * planes * kTcRowTile -
+                         kResidentExchBytes -
+                         kResidentBarBytes;
+  const long long bufs = room > 0 ? room / resident_tile_bytes(pitch) : 0;
+  if (bufs < kResidentMinBufs) return 0;
+  return static_cast<int>(bufs < kResidentMaxBufs ? bufs : kResidentMaxBufs);
+}
 
 template <int N, int Planes, class Rows>
 __global__ void __launch_bounds__(kTcThreads, TcShape<N, Planes>::kBlocksPerSm)
@@ -547,6 +594,18 @@ cudaError_t launch(Bf16Rows rows, const float* phi, __nv_bfloat16* phi_t,
                    int32_t* sub, unsigned long long* tally, cudaStream_t st);
 }  // namespace tma
 
+namespace resident {
+// fused_assign_tc_resident.cuh: the narrow passes whose phi fits in one SM
+// (resident_bufs(f, k, Planes, rows.pitch) buffers, at least 3), which
+// fused_assign_tc_resident.cu builds for both plane counts; ``phi_t`` is
+// staged.
+template <int Planes>
+cudaError_t launch(TileRows rows, const __nv_bfloat16* phi_t,
+                   const float* log_w, const int32_t* seed, int tile_off,
+                   int hard, int tile, int n, int f, int k, int bufs,
+                   int32_t* labels, int32_t* sub, cudaStream_t st);
+}  // namespace resident
+
 template <int Planes, class Rows>
 cudaError_t launch_assign_tc(Rows rows, const float* phi,
                              __nv_bfloat16* phi_t, const float* log_w,
@@ -572,6 +631,13 @@ cudaError_t launch_assign_tc(Rows rows, const float* phi,
       phi, f, k, width, f_pad, total_rows, Planes, phi_t);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  // a narrow pass whose staged phi fits in one SM beside the ring: the
+  // persistent blocks of fused_assign_tc_resident.cuh
+  const TileRows tiles = tile_rows(rows);
+  const int bufs = resident_bufs(f, k, Planes, tiles.pitch);
+  if (bufs > 0)
+    return resident::launch<Planes>(tiles, phi_t, log_w, seed, tile_off, hard,
+                                    tile, n, f, k, bufs, labels, sub, st);
 #define DPMM_TC(N)                                                          \
   return launch_width<N, Planes>(rows, phi_t, log_w, seed, tile_off, hard, \
                                  tile, n, f, k, labels, sub, st)

@@ -42,6 +42,8 @@ _SIGNATURES = {
                                _P, _P],
     # f, k, planes
     "dpmm_assign_tc_scratch": [_I, _I, _I],
+    # f, k, planes, pitch
+    "dpmm_assign_tc_resident": [_I, _I, _I, _I],
     # rows, pairs, d, labels, sub, valid, n, f, k, scratch, stats, stream
     "dpmm_stats_from_labels": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                                _P],

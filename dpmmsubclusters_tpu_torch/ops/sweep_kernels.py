@@ -56,7 +56,11 @@ operands to one bf16 pass only under ``"bf16"`` or for a bf16 cache
 * ``"highest"``: exact float32 (``csrc/fused_assign.cu``).
 
 The tensor-core launches are also counted in
-``fused_assign.tensor_core_launches``.  The statistics are exact float32 on
+``fused_assign.tensor_core_launches``; those at a pass width of 128 or less
+over at most two 64-feature slices whose staged phi fits in one SM beside
+a ring of tiles (:func:`resident_bufs`) take the persistent kernel of
+``csrc/fused_assign_tc_resident.cuh`` and are also counted in
+``fused_assign.resident_launches``.  The statistics are exact float32 on
 every setting.
 
 The Gumbel noise is the TPU kernel's counter hash, reproduced bit for bit
@@ -238,6 +242,55 @@ def _count_passes(log_w) -> None:
         run_name, width_name = profiling.PASS_COUNTERS
         profiling.count(run_name, live_passes(log_w))
         profiling.count(width_name, width)
+
+
+# the resident kernel's shared memory (csrc/fused_assign_tc.cuh's
+# resident_bufs): an SM's 227 KB less 1 KB to align the first tile, the
+# exchange's 2 x 64 bests of 12 bytes a pipeline and the barriers (one, and
+# two a buffer of at most 8); two row tiles of 64 x 64 bf16 values a plane
+# and pipeline; at least 3 buffers of 64 rows, their bytes rounded up to 128
+_RESIDENT_PIPES = 2
+_RESIDENT_ROOM = (232448 - 1024 - _RESIDENT_PIPES * 2 * 64 * 12
+                  - 8 * (1 + 2 * 8))
+_RESIDENT_BUFS = (3, 8)
+_RESIDENT_SLICES = 2    # the most 64-feature slices of F it takes
+
+
+def resident_bufs(f: int, k: int, planes: int, pitch: int) -> int:
+    """The route rule of kernel A's tensor-core pass, from the shape alone
+    (``csrc/fused_assign_tc.cuh``'s ``resident_bufs``): the buffers of 64
+    rows ``pitch`` bytes apart that fit in one SM beside the launch's phi_t
+    (passes x slices x planes x N x 64 bf16 values) and the row tiles of
+    the resident kernel's two pipelines, up to 8, where the pass width N is
+    128 or less, F is at most two slices of 64 and at least 3 fit; else 0,
+    and the pass keeps the 64-point blocks of ``fused_assign_tc.cuh``.
+    ``pitch``: 4 d for rows built from the raw points, 4 F for the f32
+    cache, 2 ld for the bf16 cache (:func:`_row_pitch`)."""
+    width = 32 if k <= 16 else 64 if k <= 32 else 128 if k <= 64 else 256
+    if width > 128 or -(-f // 64) > _RESIDENT_SLICES:
+        return 0
+    phi = tc_passes(k) * (-(-f // 64)) * planes * width * 64 * 2
+    room = _RESIDENT_ROOM - phi - _RESIDENT_PIPES * 2 * planes * 64 * 64 * 2
+    bufs = max(room, 0) // (-(-64 * pitch // 128) * 128)
+    lo, hi = _RESIDENT_BUFS
+    return 0 if bufs < lo else min(bufs, hi)
+
+
+def _row_pitch(x, family_name: str) -> int:
+    """Bytes between two rows of what kernel A's ll product reads: the raw
+    points of a built variant, or the cache."""
+    if family_name in _BF16:
+        return 2 * x.stride(0)
+    return 4 * x.shape[1]
+
+
+def _count_route(resident: bool) -> None:
+    """A tensor-core launch of kernel A in ``profiling.ROUTE_COUNTERS``:
+    every one, and those the resident kernel takes."""
+    resident_name, tc_name = profiling.ROUTE_COUNTERS
+    profiling.count(tc_name)
+    if resident:
+        profiling.count(resident_name)
 
 
 # ---- plain versions ----------------------------------------------------------
@@ -582,6 +635,9 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     than one pass count the passes they ran, up to the highest live
     column, and the width's passes (``profiling.PASS_COUNTERS``): on the
     card in ``profiling.pass_tally``, on the CPU from ``log_w`` here.
+    And every tensor-core launch counts in ``profiling.ROUTE_COUNTERS``,
+    those that take the resident kernel (:func:`resident_bufs`) apart, on
+    the host from the shape, on the card and the CPU alike.
     """
     _check_variant(family_name, VARIANTS, x_raw)
     planes = _PLANES[ll_route(family_name, ll_precision)]
@@ -595,9 +651,13 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
     tma = planes == 1 and family_name in _BF16 and k > 64
     ring = planes == 2 and k > 64   # csrc/fused_assign_tc_ring.cuh's kernel
     counted = (tma or ring) and profiling.tracing()
+    f = feature_dim(family_name, x.shape[1])
     if x.device.type == "cpu":
         if counted:
             _count_passes(log_w)
+        if tensor_cores and profiling.tracing():
+            _count_route(resident_bufs(f, k, planes,
+                                       _row_pitch(x, family_name)) > 0)
         if torch.is_tensor(seed):
             seed = int(seed.reshape(-1)[0])
         return fused_assign_reference(x, valid, phi_mat, log_w, seed,
@@ -635,6 +695,10 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
             "for every such call; lay it out once with "
             "sweep_kernels.pad_bf16_rows", RuntimeWarning, stacklevel=2)
         x = pad_bf16_rows(x)
+    resident = tensor_cores and resident_bufs(
+        f, k, planes, _row_pitch(x, family_name)) > 0
+    if tensor_cores and profiling.tracing():
+        _count_route(resident)
     lib = _build.load()
     delta_t = phi_t = None
     if tensor_cores:
@@ -672,6 +736,8 @@ def fused_assign(x, valid, phi_mat, log_w, seed, tile_off: int = 0,
         fused_assign.tma_launches[family_name] += 1
     if ring:
         fused_assign.ring_launches[family_name] += 1
+    if resident:
+        fused_assign.resident_launches[family_name] += 1
     return labels, sub, stats
 
 
@@ -683,6 +749,7 @@ def reset_launches() -> None:
     fused_assign.tensor_core_launches = dict.fromkeys(VARIANTS, 0)
     fused_assign.tma_launches = dict.fromkeys(_BF16, 0)
     fused_assign.ring_launches = dict.fromkeys(VARIANTS, 0)
+    fused_assign.resident_launches = dict.fromkeys(VARIANTS, 0)
     stats_from_labels.launches = dict.fromkeys(STATS_VARIANTS, 0)
     slot_sums.launches = 0
     key_sort.launches = 0

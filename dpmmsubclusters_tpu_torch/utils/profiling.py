@@ -40,7 +40,9 @@ per sweep ``table_math.sample_params``, ``kernel_a.assign_and_stats``,
 conjugate math (:func:`family_span`), ``table_math.family.draw``,
 ``.posterior`` and ``.marginal``; and ``host_sync.<site>`` with the counters
 ``sweeps`` and ``smart_sums`` (the smart pass's per-slot sums taken by
-kernel B on a card).  Kernel A's counters :data:`PASS_COUNTERS` are kept on
+kernel B on a card) and :data:`ROUTE_COUNTERS` (kernel A's tensor-core
+launches and those of its resident kernel, counted on the host where the
+route is chosen).  Kernel A's counters :data:`PASS_COUNTERS` are kept on
 the card (:func:`pass_tally`: its launches add to them in stream order, so
 counting waits for nothing) and read into :func:`counters` when it is
 called.  The record belongs to the process and is not thread-safe: the
@@ -65,6 +67,9 @@ MAX_SPANS = 4096          # closed spans kept in memory, the newest
 # calls for more than one pass: the passes they ran (up to the highest live
 # column) and the passes the width calls for
 PASS_COUNTERS = ("kernel_a.passes_run", "kernel_a.passes_width")
+# kernel A's tensor-core launches that the resident kernel takes, and all of
+# them (counted on the host where the route is chosen)
+ROUTE_COUNTERS = ("kernel_a.resident_launches", "kernel_a.tc_launches")
 _TALLY = {}               # device -> int64 [2] of PASS_COUNTERS on the card
 
 _autograd_profiler = torch.autograd.profiler

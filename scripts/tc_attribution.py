@@ -15,7 +15,8 @@ checks' shapes (``chip_smoke.Case``):
 
 A variant's time against ``base`` is what that part costs beyond what the
 rest hides.  Each time is the device time of the pass's kernels
-(``stage_phi_kernel`` and ``assign_tc_kernel`` or ``assign_tma_kernel``)
+(``stage_phi_kernel`` and ``assign_tc_kernel``, ``assign_tma_kernel`` or
+``assign_resident_kernel``)
 a call, by torch.profiler
 over 3 calls after a warm-up (``chip_smoke.device_ms_by_kernel``): the
 statistics pass after it is left out, as its time depends on the labels,
@@ -23,19 +24,22 @@ which the ablated kernels make nonsense of.  One JSON line a (variant,
 shape), with the card's name and power limit.
 
     python scripts/tc_attribution.py [--src DIR] [--variants a,b] \\
-        [--shapes gaussian,hybrid,precomputed,bfloat16] [--design NAME] \\
-        [--live N]
+        [--shapes gaussian,hybrid,precomputed,bfloat16,multinomial] \\
+        [--design NAME] [--live N]
 
 ``--src`` names another tree's ``csrc`` (a ``git archive`` of an earlier
 commit): its kernels are built and driven through this tree's wrappers
 (the C interface is the same).  ``--design`` picks the ablations' kernel
 ("tma": fused_assign_tc_tma.cuh, which one bf16 pass over a bf16 cache
 at a pass width of 256 takes; "ring": fused_assign_tc_ring.cuh, the two
-planes there; "column halves": fused_assign_tc.cuh, the rest); by default
+planes there; "resident": fused_assign_tc_resident.cuh, the narrow passes
+whose phi fits in one SM; "column halves": fused_assign_tc.cuh, the rest);
+by default
 the newest one the source holds, at the shapes that take it (``--shapes``
 overrides).  ``--live N`` makes the slots past the first N inactive
-(log_w -inf), as the 10M cells' K=100 at a table width of 256.  Needs a
-card and nvcc.
+(log_w -inf), as the 10M cells' K=100 at a table width of 256, or the
+20M counts cell's K=20 at 64 slots (``--shapes multinomial --live 20``).
+Needs a card and nvcc.
 """
 from __future__ import annotations
 
@@ -166,15 +170,56 @@ PATCHES["tma"] = {
     ],
     "no_epilogue": PATCHES["ring"]["no_epilogue"],
 }
-# the header each design's kernel lives in, oldest first
+PATCHES["resident"] = {
+    # the narrow passes' persistent kernel: phi resident, a producer warp
+    # streaming 64-point tiles, two column-half warpgroups
+    "no_product": [
+        ("        wgmma_bf16(acc, da + 2 * kk, db + kPhiPlane / 16 + 2 * kk);",
+         "        if (false) wgmma_bf16(acc, da + 2 * kk, db + kPhiPlane / 16 "
+         "+ 2 * kk);"),
+        ("        wgmma_bf16(acc, da + kTcRowTile / 16 + 2 * kk, db + 2 * kk);",
+         "        if (false) wgmma_bf16(acc, da + kTcRowTile / 16 + 2 * kk, "
+         "db + 2 * kk);"),
+        ("      wgmma_bf16(acc, da + 2 * kk, db + 2 * kk);",
+         "      if (false) wgmma_bf16(acc, da + 2 * kk, db + 2 * kk);"),
+        ("\n  for (int j = 0; j < N / 4; ++j) acc[j] = 0.0f;",
+         "\n  for (int j = 0; j < N / 4; ++j) acc[j] = 100.0f * j;"),
+        ("\n    for (int j = 0; j < N / 4; ++j) acc[j] = 0.0f;",
+         "\n    for (int j = 0; j < N / 4; ++j) acc[j] = 100.0f * j;"),
+    ],
+    "no_phi": [
+        ("    mbar_expect(bars, lay.phi_bytes());",
+         "    mbar_arrive(bars);"),
+        ("      bulk_copy(base + s * step_bytes,",
+         "      if (false) bulk_copy(base + s * step_bytes,"),
+    ],
+    "no_rows": [
+        ("        mbar_expect(full, tile_src);\n        bulk_copy(",
+         "        mbar_arrive(full);\n        if (false) bulk_copy("),
+        ("        for (int u = lane; u < units; u += 32)",
+         "        for (int u = lane; u < 0; u += 32)"),
+        ("    load_rows(rows, smem + lay.buf(b), s, f, warp, lane, held);\n"
+         "    store_rows<Planes>(smem + lay.row_tile(pipe, g & 1), warp, lane, "
+         "held);", ""),
+    ],
+    "no_epilogue": [
+        ("    best[0] = best[1] = {-INFINITY, 0x7fffffff, 0.0f};\n"
+         "#pragma unroll\n    for (int h = 0; h < 2; ++h) {",
+         "    best[0] = best[1] = {acc[0], 0, acc[1]};\n"
+         "    for (int h = 0; h < 2 && col0 < 0; ++h) {"),
+    ],
+}
+# the file each design's kernel lives in, oldest first
 HEADERS = {"column halves": "fused_assign_tc.cuh",
            "ring": "fused_assign_tc_ring.cuh",
-           "tma": "fused_assign_tc_tma.cuh"}
+           "tma": "fused_assign_tc_tma.cuh",
+           "resident": "fused_assign_tc_resident.cuh"}
 # the shapes each design's kernel takes (chip_smoke.Case's)
 DESIGN_SHAPES = {"column halves": "gaussian,hybrid,precomputed",
                  "ring": "gaussian,hybrid,precomputed",
-                 "tma": "hybrid,bfloat16"}
-SHAPES = ("gaussian", "hybrid", "precomputed", "bfloat16")
+                 "tma": "hybrid,bfloat16",
+                 "resident": "multinomial"}
+SHAPES = ("gaussian", "hybrid", "precomputed", "bfloat16", "multinomial")
 
 
 def variant_lib(src: pathlib.Path, name: str, header: str,
@@ -192,17 +237,32 @@ def variant_lib(src: pathlib.Path, name: str, header: str,
                                f"times: {old!r}")
         text = text.replace(old, new)
     head.write_text(text)
-    lib = ctypes.CDLL(str(_build.build(verbose=True, src_dir=work)))
+    return typed_lib(_build.build(verbose=True, src_dir=work))
+
+
+def typed_lib(path) -> ctypes.CDLL:
+    """The library at ``path``, its entry points typed (those an earlier
+    tree's library lacks are left out)."""
+    lib = ctypes.CDLL(str(path))
     for fn, argtypes in _build._SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _build._RESTYPES.get(fn, ctypes.c_int)
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _build._RESTYPES.get(fn, ctypes.c_int)
     return lib
 
 
 def shape_case(torch, dev, shape: str):
     """The kernel checks' inputs (``chip_smoke.check_kernels``): the
     10M x 64-d fit's rows (D=64, F=2145, K=256) built, or as a hybrid bf16
-    cache; the flagship's f32 or bf16 cache (D=32, F=561, K=128)."""
+    cache; the flagship's f32 or bf16 cache (D=32, F=561, K=128); the
+    multinomial fits' counts (1M x 100-d, F=101, K=64: a pass width of
+    128)."""
+    if shape == "multinomial":
+        from dpmmsubclusters_tpu_torch.utils.generators import (
+            generate_mnmm_data)
+
+        x, _, _ = generate_mnmm_data(cs.N_CHECK, 100, 20, 120, seed=1)
+        return cs.Case(torch, dev, x, "multinomial", 64)
     if shape == "precomputed":
         x, _ = cs.separated_data(cs.N_CHECK, cs.D_FLAG, cs.K_TRUE_FLAG)
         x = (x - x.mean(0)) / x.std(0)
@@ -266,6 +326,7 @@ def main() -> int:
             pass_ms = sum(v for kname, v in by_kernel.items()
                           if kname in ("assign_tc_kernel",
                                        "assign_tma_kernel",
+                                       "assign_resident_kernel",
                                        "stage_phi_kernel"))
             print(json.dumps(dict(design=design, variant=name, shape=shape,
                                   k=case.k, live=args.live or case.k,

@@ -31,7 +31,7 @@ ALWAYS = ("entry.fit", "entry.standardize", "entry.transfer",
           "host_loop.step_block", "host_loop.tier_step")
 READERS = ("init_s", "cache_build_s", "init_s.fit", "standardize_s.fit",
            "smart_s.fit", "host_syncs_per_sweep", "host_syncs_per_sweep.fit",
-           "params_ms", "moves_ms")
+           "params_ms", "moves_ms", "assign_resident_pct")
 
 
 @pytest.fixture(autouse=True)
@@ -338,7 +338,8 @@ def test_plain_kernel_a_counts_the_passes_of_its_live_columns(family, k,
 
 def test_plain_kernel_a_counts_no_passes_off_the_two_wide_kernels():
     """The exact route and one bf16 pass over float32 rows take neither
-    kernel at a pass width of 256: nothing is counted."""
+    kernel at a pass width of 256: no pass is counted (the bf16 pass counts
+    as a tensor-core launch only)."""
     from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
 
     x, valid, phi, log_w = _assign_case(256, range(100))
@@ -347,7 +348,7 @@ def test_plain_kernel_a_counts_no_passes_off_the_two_wide_kernels():
         sk.fused_assign(x, valid, phi, log_w, 5, family_name="gaussian",
                         ll_precision=route)
     profiling.enable(False)
-    assert profiling.counters() == {}
+    assert profiling.counters() == {"kernel_a.tc_launches": 1}
 
 
 def test_pass_counts_need_tracing_and_reset_drops_them():
@@ -362,7 +363,8 @@ def test_pass_counts_need_tracing_and_reset_drops_them():
     call()
     call()
     assert profiling.counters() == {"kernel_a.passes_run": 2,
-                                    "kernel_a.passes_width": 4}
+                                    "kernel_a.passes_width": 4,
+                                    "kernel_a.tc_launches": 2}
     profiling.reset()
     assert profiling.counters() == {}
 
@@ -380,3 +382,92 @@ def test_assign_pass_pct_reads_the_pass_counts():
                         ll_precision="default")
     profiling.enable(False)
     assert read(None) == pytest.approx(100.0 * 5 / 8)
+
+
+@pytest.mark.parametrize("f,k,planes,pitch,bufs", [
+    (101, 64, 2, 4 * 100, 3),      # the 20M counts: built rows [1, x]
+    (101, 64, 1, 4 * 100, 6),      # the same under one bf16 pass
+    (561, 16, 2, 4 * 32, 0),       # rows built at D=32: 9 slices
+    (128, 16, 2, 4 * 127, 4),      # 2 slices
+    (129, 16, 2, 4 * 128, 0),      # 3 slices
+    (6, 4, 2, 4 * 6, 8),           # the 4 corners' f32 cache
+    (2145, 256, 2, 4 * 64, 0),     # width 256: the ring
+    (561, 128, 2, 4 * 32, 0),
+    (561, 64, 2, 4 * 32, 0),       # phi_t 295 KB
+    (2145, 16, 2, 4 * 64, 0),      # phi_t 278 KB
+    (561, 16, 2, 4 * 561, 0),      # the f32 cache: a tile is 143.6 KB
+    (561, 16, 1, 2 * 568, 0)])     # the bf16 cache: two tiles fit, not 3
+def test_resident_rule_follows_the_shape(f, k, planes, pitch, bufs):
+    """Kernel A's route rule (``resident_bufs``): the resident kernel takes
+    a pass of width 128 or less, over at most two 64-feature slices, whose
+    staged phi, its two pipelines' row tiles and at least three 64-row
+    buffers fit in one SM, with as many buffers as fit up to 8; the family
+    is never asked."""
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    assert sk.resident_bufs(f, k, planes, pitch) == bufs
+
+
+def _route_case(family, d, k, n=200):
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    gen = torch.Generator().manual_seed(d + k)
+    x = torch.rand((n, d), generator=gen) * 4
+    if family == "multinomial":
+        x = x.round()
+    elif family == "precomputed":
+        x = priors.GAUSSIAN.features(x)
+    elif family == "bfloat16":
+        x = sk.pad_bf16_rows(priors.GAUSSIAN.features(x).bfloat16())
+    f = sk.feature_dim(family, x.shape[1])
+    phi = torch.randn((f, 2 * k), generator=gen) * 0.01
+    log_w = torch.full((k,), -float(np.log(k)))
+    return x, torch.ones(n, dtype=torch.bool), phi, log_w
+
+
+@pytest.mark.parametrize("family,d,k,route,want", [
+    ("multinomial", 100, 64, "default", (1, 1)),
+    ("multinomial", 100, 64, "bf16", (1, 1)),
+    ("gaussian", 32, 16, "default", (0, 1)),
+    ("gaussian", 32, 64, "default", (0, 1)),
+    ("gaussian", 2, 256, "default", (0, 1)),
+    ("precomputed", 32, 16, "default", (0, 1)),
+    ("precomputed", 2, 16, "default", (1, 1)),
+    ("bfloat16", 32, 16, "default", (0, 1)),
+    ("bfloat16", 2, 16, "high", (1, 1)),
+    ("multinomial", 100, 64, "highest", None)])
+def test_plain_kernel_a_counts_its_route(family, d, k, route, want):
+    """While tracing, the plain version counts what a card's launch counts
+    on the host: each tensor-core launch in ``kernel_a.tc_launches``, those
+    the rule hands the resident kernel in ``kernel_a.resident_launches``
+    (from the shape, as the wrapper chooses); the exact route neither."""
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    args = _route_case(family, d, k)
+    sk.fused_assign(*args, 5, family_name=family, ll_precision=route)
+    assert profiling.counters() == {}
+    profiling.enable()
+    sk.fused_assign(*args, 5, family_name=family, ll_precision=route)
+    profiling.enable(False)
+    counts = profiling.counters()
+    got = tuple(counts.get(n, 0) for n in profiling.ROUTE_COUNTERS)
+    assert got == (want or (0, 0))
+
+
+def test_assign_resident_pct_reads_the_route_counts():
+    """``dpmmbench/metrics/assign_resident_pct.py``: 100 x resident
+    launches / tensor-core launches, None where none was counted."""
+    from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+
+    read = _reader("assign_resident_pct")
+    assert read(None) is None
+    profiling.enable()
+    sk.fused_assign(*_route_case("multinomial", 100, 64, n=50), 5,
+                    family_name="multinomial", ll_precision="highest")
+    assert read(None) is None
+    for family, d, k in (("multinomial", 100, 64), ("gaussian", 2, 256),
+                         ("gaussian", 2, 256), ("gaussian", 2, 256)):
+        sk.fused_assign(*_route_case(family, d, k, n=50), 5,
+                        family_name=family, ll_precision="default")
+    profiling.enable(False)
+    assert read(None) == pytest.approx(25.0)
