@@ -163,7 +163,7 @@ def _stats_leaves(stats_k2f: torch.Tensor, ref_2kf: torch.Tensor):
 
 
 def judge_sweep(ref, x, call: AssignCall, stats_calls, tie: float,
-                control=None):
+                control=None, reduce=None):
     """Kernel A's last call judged over every point in blocks by the
     reference module ``ref``, with the statistics of ``stats_calls``
     ((labels, sub, stats [K, 2, F]) each); ``tie`` is the stated ll
@@ -172,7 +172,10 @@ def judge_sweep(ref, x, call: AssignCall, stats_calls, tie: float,
     control's labels, sub-labels and statistics are made in the same pass
     and judged alike.  Returns :func:`_gaps` and "stats_err" (and
     "control": the same of the control).  Float32 products (the
-    control's) run without TF32."""
+    control's) run without TF32.  Across ranks, whose statistics the port
+    sums over every rank (in place of kernel A's and kernel B's outputs),
+    ``reduce`` sums the reference's float64 sums of this rank's points
+    over the ranks before they are compared."""
     torch.backends.cuda.matmul.allow_tf32 = False
     n, dev = x.shape[0], x.device
     k = call.width
@@ -238,6 +241,9 @@ def judge_sweep(ref, x, call: AssignCall, stats_calls, tie: float,
             acc["ctl"] += ref.sums_by_key(feats, key, 2 * k)
             acc["ctl_q"] += ref.sums_by_key(
                 ref.quantize(feats, control["stats"]), key, 2 * k)
+    if reduce is not None:
+        acc = {key: reduce(v) for key, v in acc.items()}
+        stats_acc = [reduce(a) for a in stats_acc]
     errs = [_leaf_err(*_stats_leaves(call.stats, acc["prog"]))]
     errs += [_leaf_err(*_stats_leaves(st, a))
              for (_, _, st), a in zip(stats_calls, stats_acc)]
@@ -280,3 +286,42 @@ def judge_posterior(ref, active, stats: dict, post: dict, prior: dict,
 def recovery(ref, labels, gt, k: int, k_true: int) -> dict:
     return {"k_err": float(abs(int(k) - int(k_true))),
             "nmi_loss": 1.0 - ref.nmi(labels, gt)}
+
+
+def contingency(labels, gt, k_slots: int, k_true: int) -> torch.Tensor:
+    """int64 [k_slots, k_true] counts of the points by (label, generator
+    label); tables of several ranks' points add."""
+    key = labels.long() * k_true + gt.long()
+    return torch.bincount(key, minlength=k_slots * k_true).view(
+        k_slots, k_true)
+
+
+def recovery_from_table(ref, table, k: int, k_true: int) -> dict:
+    """:func:`recovery` of the points counted in a contingency table (the
+    ranks' tables summed)."""
+    return {"k_err": float(abs(int(k) - int(k_true))),
+            "nmi_loss": 1.0 - ref.nmi_of_table(table)}
+
+
+def table_digest(table) -> str:
+    """sha256 of every value of a cluster table (nested dicts, sorted
+    keys): equal on every rank where the table is replicated."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            v = node[key]
+            h.update(f"{prefix}{key}".encode())
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{key}/")
+            elif torch.is_tensor(v):
+                h.update(str(v.dtype).encode())
+                h.update(v.detach().cpu().contiguous().view(-1).view(
+                    torch.uint8).numpy().tobytes())
+            else:
+                h.update(repr(v).encode())
+
+    walk(table, "")
+    return h.hexdigest()

@@ -5,6 +5,11 @@ A torch copy of the flagship mixture the repository's benchmarks use
 by ``mean_scale``, each point's generator label uniform over them, unit
 covariances.  The same seed gives the same points and labels on one kind
 of card; the generator labels are kept for the recovery check.
+
+A mixture sharded over ranks (:func:`shard_of_separated_data`) draws the
+same means from the seed alone and each block of ``BLOCK_ROWS`` global
+rows from a stream of its own, keyed on (seed, block index), so that the
+points do not depend on how the rows are split.
 """
 from __future__ import annotations
 
@@ -29,6 +34,41 @@ def separated_data(n: int, d: int, k_true: int, mean_scale: float,
     labels = torch.randint(0, k_true, (n,), generator=gen, device=device)
     x = torch.randn((n, d), generator=gen, device=device)
     x += means[labels]
+    return x, labels
+
+
+BLOCK_ROWS = 1_000_000
+
+
+def block_seed(seed: int, block: int) -> int:
+    """The seed of global block ``block`` of a sharded mixture."""
+    state = np.random.SeedSequence([int(seed) % (1 << 63), int(block)])
+    return int(state.generate_state(1, np.uint32)[0]) & 0x7FFFFFFE
+
+
+def shard_of_separated_data(row0: int, rows: int, d: int, k_true: int,
+                            mean_scale: float, seed: int, device,
+                            block: int = BLOCK_ROWS, pad_to: int = 0) -> tuple:
+    """Global rows ``[row0, row0 + rows)`` of the mixture of
+    :func:`separated_data`'s law, sharded: (x float32 [R, d], labels int64
+    [R]) on ``device``, with R = max(rows, ``pad_to``) and zeros past
+    ``rows``.  The means come from ``seed`` alone; each block of ``block``
+    global rows draws its labels, then its points, from a generator seeded
+    with :func:`block_seed`, whole, and gives this shard its overlap."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    means = torch.randn((k_true, d), generator=gen, device=device)
+    means *= mean_scale
+    x = torch.zeros((max(rows, pad_to), d), dtype=torch.float32,
+                    device=device)
+    labels = torch.zeros(max(rows, pad_to), dtype=torch.int64, device=device)
+    for b in range(row0 // block, -(-(row0 + rows) // block)):
+        g = torch.Generator(device=device).manual_seed(block_seed(seed, b))
+        lab = torch.randint(0, k_true, (block,), generator=g, device=device)
+        xb = torch.randn((block, d), generator=g, device=device)
+        xb += means[lab]
+        lo, hi = max(row0, b * block), min(row0 + rows, (b + 1) * block)
+        x[lo - row0:hi - row0] = xb[lo - b * block:hi - b * block]
+        labels[lo - row0:hi - row0] = lab[lo - b * block:hi - b * block]
     return x, labels
 
 

@@ -12,6 +12,10 @@ configuration's reference module) against ``limits/<cell>.json``.
 Per-layer metrics are read by the files of ``metrics/``, one a metric.
 Every one of these is found by its name: a new configuration, traffic
 mix, kind, reference or metric is a new file and new entries.
+
+A cell on more than one card runs this once a rank (``ranks.py``): every
+rank's kind runs the cell on its own card and rows, and rank 0's run
+prints the result, with the numbers its kind gathered from the others.
 """
 from __future__ import annotations
 
@@ -144,22 +148,27 @@ def plan(spec: Spec, cell_name: str) -> SimpleNamespace:
     return SimpleNamespace(name=cell_name, cell=cell, config=config,
                            traffic=traffic, sampler=sampler, stated=stated,
                            limits=spec.limits(cell_name),
-                           ref=spec.reference(config))
+                           ref=spec.reference(config),
+                           groups=spec.data("kernels.json")["groups"],
+                           ranks=None)
 
 
 def work(p: SimpleNamespace, k_live: int) -> dict:
-    """The shapes and stated precision the roofline counts take: points,
-    width, features, live clusters, the rows kernel A reads (an f32 or
-    bf16 cache, the hybrid pair, or the raw points) and the ll product's
-    passes at its peak (the three-pass bf16 split counts as three bf16
-    passes, one bf16 pass as one, exact float32 at float32's peak)."""
+    """The shapes and stated precision the roofline counts take: one
+    card's points (the configuration's over its ``devices``, 1 where it
+    states none), width, features, live clusters, the rows kernel A reads
+    (an f32 or bf16 cache, the hybrid pair, or the raw points) and the ll
+    product's passes at its peak (the three-pass bf16 split counts as
+    three bf16 passes, one bf16 pass as one, exact float32 at float32's
+    peak)."""
     d, s = p.config["data"], p.sampler
     cached = bool(s.get("precompute_features"))
     dtype = s.get("feature_dtype", "float32")
     rows = ({"float32": "f32_cache", "bfloat16": "bf16_cache",
              "hybrid": "hybrid"}[dtype] if cached else "raw")
     exact = s.get("ll_precision", "default") == "highest"
-    return dict(n=d["n"], d=d["d"], f=p.ref.feature_dim(d["d"]),
+    return dict(n=d["n"] // p.config.get("devices", 1), d=d["d"],
+                f=p.ref.feature_dim(d["d"]),
                 k_live=int(k_live), rows=rows,
                 passes=1 if exact or p.stated["ll"] == "bfloat16" else 3,
                 peak="fp32" if exact else "bf16")
@@ -199,10 +208,11 @@ def control_precisions(p) -> dict:
     return {key: p.ref.LOWER[v] for key, v in p.stated.items()}
 
 
-def judge(p, x, call, stats_calls, final, prior, control: bool):
+def judge(p, x, call, stats_calls, final, prior, control: bool,
+          reduce=None):
     """The numbers of kernel A's last call, the statistics and the final
     table's posterior (``check.py``), and with ``control`` the control's
-    (else None)."""
+    (else None); ``reduce`` sums the reference's sums over the ranks."""
     from . import check
 
     ctl = control_precisions(p) if control else None
@@ -212,7 +222,8 @@ def judge(p, x, call, stats_calls, final, prior, control: bool):
         return nothing, (dict(nothing) if control else None)
     a = check.AssignCall(p.ref, **call)
     sweep = check.judge_sweep(p.ref, x, a, stats_calls,
-                              check.TIE_EPS[p.stated["ll"]], control=ctl)
+                              check.TIE_EPS[p.stated["ll"]], control=ctl,
+                              reduce=reduce)
     post = check.judge_posterior(p.ref, final["active"], final["stats"],
                                  final["post"], prior,
                                  ctl["posterior"] if ctl else None)
@@ -249,18 +260,23 @@ def within(p, numbers: dict) -> bool:
 
 def run(spec: Spec, cell_name: str, seed: int, seconds: float,
         trace_on: bool, device, t_proc: float, clock=time.perf_counter,
-        control: bool = False) -> dict:
+        control: bool = False, ranks=None) -> dict:
     """One run of a cell; returns the result line's object.  With
     ``control`` the control's numbers stand in the port's place (the
     recovery and the state's check stay the port's), so that a sound
-    benchmark reads the control not correct."""
+    benchmark reads the control not correct.  On more than one card
+    ``ranks`` is this rank's (``ranks.Ranks``): rank 0 returns the result,
+    every other rank None."""
     import torch
 
     from .trace import group_seconds
 
     p = plan(spec, cell_name)
+    p.ranks = ranks
     out = spec.runner(p.traffic["kind"])(p, seed, seconds, trace_on, device,
                                          clock, t_proc, control)
+    if ranks is not None and ranks.rank > 0:
+        return None
     limits = limits_of(p)
     numbers = out["numbers"]
     if control:
@@ -286,15 +302,18 @@ def run(spec: Spec, cell_name: str, seed: int, seconds: float,
     result = {"correct": correct, "attempted": out["attempted"],
               "failed": max(out["bad"], int(not correct)),
               "metrics": metrics}
+    count = ranks.world if ranks is not None else 1
     if torch.device(device).type == "cuda":
         result["device"] = {"platform": "gpu",
                             "kind": torch.cuda.get_device_name(),
-                            "count": 1,
+                            "count": count,
                             "memory_peak_bytes": int(out["peak"]),
                             "card": card()}
     else:
-        result["device"] = {"platform": "cpu", "kind": "cpu", "count": 1,
+        result["device"] = {"platform": "cpu", "kind": "cpu", "count": count,
                             "memory_peak_bytes": 0}
+    if "peak_by_rank" in out:
+        result["device"]["memory_peak_bytes_by_rank"] = out["peak_by_rank"]
     if trace_on and out["ctx"].trace is not None:
         tr = out["ctx"].trace
         result["device"].update(busy_s=tr["busy_s"], window_s=tr["window_s"])

@@ -19,7 +19,8 @@ float8 e4m3 with one amax scale per column, the step below bfloat16.
 A configuration names its family's reference module by path (its
 ``reference`` key); the judge takes from it ``feature_dim``, ``features``,
 ``coeffs``, ``sums_by_key``, ``quantize``, ``LOWER``, ``default_prior``,
-``standardized_prior``, ``posterior`` and ``nmi``.
+``standardized_prior``, ``posterior`` and ``nmi`` (``nmi_of_table`` where
+the labels are counted by rank).
 """
 from __future__ import annotations
 
@@ -153,7 +154,14 @@ def nmi(a: torch.Tensor, b: torch.Tensor) -> float:
     _, bi = torch.unique(b, return_inverse=True)
     na, nb = int(ai.max()) + 1, int(bi.max()) + 1
     table = torch.bincount(ai.long() * nb + bi.long(), minlength=na * nb)
-    p = table.to(torch.float64).view(na, nb) / a.shape[0]
+    return nmi_of_table(table.view(na, nb))
+
+
+def nmi_of_table(table: torch.Tensor) -> float:
+    """:func:`nmi` of the two labelings whose contingency table (counts by
+    (a, b); empty rows and columns add nothing) is ``table``."""
+    t = table[table.sum(1) > 0][:, table.sum(0) > 0]
+    p = t.to(torch.float64) / float(t.sum())
     pa, pb = p.sum(1), p.sum(0)
 
     def entropy(q):

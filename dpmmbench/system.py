@@ -19,9 +19,10 @@ from dpmmsubclusters_tpu_torch import api, priors
 from dpmmsubclusters_tpu_torch.config import DPMMConfig
 from dpmmsubclusters_tpu_torch.ops import _build
 from dpmmsubclusters_tpu_torch.ops import sweep_kernels as sk
+from dpmmsubclusters_tpu_torch.parallel import distributed
 from dpmmsubclusters_tpu_torch.sampler import (assign, driver, moves, smart,
                                               sweep)
-from dpmmsubclusters_tpu_torch.sampler.driver import DPMMEngine
+from dpmmsubclusters_tpu_torch.sampler.driver import DPMMEngine, DPMMState
 
 
 def load_kernels(device) -> None:
@@ -31,11 +32,50 @@ def load_kernels(device) -> None:
         _build.load()
 
 
-def make_engine(family: str, sampler: dict, device) -> DPMMEngine:
+def make_engine(family: str, sampler: dict, device,
+                layout=None) -> DPMMEngine:
     """The engine of the port's family named in the configuration
-    (``gaussian`` is ``priors.GAUSSIAN``)."""
+    (``gaussian`` is ``priors.GAUSSIAN``), over one rank's ``layout``
+    (None: one process holding every row)."""
     return DPMMEngine(getattr(priors, family.upper()),
-                      DPMMConfig(verbose=False, **sampler), device)
+                      DPMMConfig(verbose=False, **sampler), device, layout)
+
+
+def join(address: str, world: int, rank: int, backend: str) -> None:
+    """Join the port's process group at the rendezvous ``address``
+    (``host:port``); under NCCL this rank's card is ``cuda:<rank>``."""
+    distributed.initialize(f"tcp://{address}", world, rank, backend=backend)
+
+
+def leave() -> None:
+    distributed.shutdown()
+
+
+def row_layout(n_local: int):
+    """This rank's row layout of ``n_local`` rows (a collective)."""
+    return distributed.row_layout(n_local)
+
+
+def place_shard(engine: DPMMEngine, x: torch.Tensor, n_local: int,
+                seed: int) -> tuple:
+    """(points container, valid, n_total) of this rank's device points
+    ``x`` [n_pad, D], of which the first ``n_local`` rows are real and the
+    rest the layout's padding; the cache built when the config asks for
+    one (its rounding keyed on the global row)."""
+    valid = torch.arange(x.shape[0], device=x.device) < n_local
+    points = x
+    if engine.cfg.precompute_features:
+        points = engine.featurize(x, seed=seed)
+    return points, valid, float(engine.layout.n_global)
+
+
+def with_own_generator(state: DPMMState) -> DPMMState:
+    """``state`` with a copy of its generator, so that driving it leaves
+    the original's draws as they were."""
+    gen = torch.Generator(device=state.gen.device)
+    gen.set_state(state.gen.get_state())
+    return DPMMState(state.table, state.labels, state.sublabels, gen,
+                     state.step)
 
 
 def place(engine: DPMMEngine, x: torch.Tensor, seed: int) -> tuple:

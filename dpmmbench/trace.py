@@ -23,9 +23,10 @@ HOST_CATS = ("cpu_op", "user_annotation")
 NAME_CHARS = 120
 
 
-def capture(fn) -> dict:
+def capture(fn, apart=()) -> dict:
     """Run ``fn()`` under the profiler inside one named span, synchronize,
-    and return :func:`reduce` of the exported trace."""
+    and return :func:`reduce` of the exported trace (``apart`` as
+    there)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU]
@@ -43,7 +44,7 @@ def capture(fn) -> dict:
         events = json.loads(Path(path).read_text())["traceEvents"]
     finally:
         os.remove(path)
-    return reduce(events)
+    return reduce(events, apart)
 
 
 def _union(intervals):
@@ -82,9 +83,11 @@ def _short(name: str) -> str:
     return name if len(name) <= NAME_CHARS else name[:NAME_CHARS - 3] + "..."
 
 
-def reduce(events: list) -> dict:
+def reduce(events: list, apart=()) -> dict:
     """The span's window and busy seconds, its device ops (count, seconds
-    by name), and its idle seconds by what the host was doing."""
+    by name), and its idle seconds by what the host was doing.  Where
+    ``apart`` names substrings of kernel names (the collectives), also
+    ``compute_busy_s``: the busy seconds of every other op."""
     span = [e for e in events if e.get("name") == SPAN
             and e.get("cat") == "user_annotation"]
     if not span:
@@ -126,11 +129,17 @@ def reduce(events: list) -> dict:
         idle[label] = idle.get(label, 0.0) + (b - a) * 1e-6
     top = lambda d: [[_short(k), v] for k, v in
                      sorted(d.items(), key=lambda kv: -kv[1])[:10]]
-    return {"window_s": (t1 - t0) * 1e-6,
-            "busy_s": sum(b - a for a, b in busy) * 1e-6,
-            "device_ops": len(dev),
-            "device_s_by_name": by_name,
-            "breakdown": {"device_ops": top(by_name), "idle_gaps": top(idle)}}
+    out = {"window_s": (t1 - t0) * 1e-6,
+           "busy_s": sum(b - a for a, b in busy) * 1e-6,
+           "device_ops": len(dev),
+           "device_s_by_name": by_name,
+           "breakdown": {"device_ops": top(by_name), "idle_gaps": top(idle)}}
+    if apart:
+        out["compute_busy_s"] = sum(
+            b - a for a, b in _union([(a, b) for a, b, name in dev
+                                      if not any(p in name for p in apart)])
+        ) * 1e-6
+    return out
 
 
 def group_seconds(trace: dict, groups: dict) -> dict:
